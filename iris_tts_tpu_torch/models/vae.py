@@ -1,0 +1,201 @@
+"""PortaSpeech-style text-conditioned VAE with a volume-preserving flow.
+
+Counterpart of the JAX package's ``models/vae.py``. Every submodule exists
+so the whole flax parameter tree loads, but only the inference path
+(:meth:`TextConditionedVAE.generate`: inverse flow on a prior sample, then
+decode) runs in this package. Internally the tensors are channels-first
+``[B, C, T]``; the public methods take and return the JAX package's
+time-major ``[B, T, C]``.
+
+Flax ``nn.gelu`` is the tanh approximation, hence ``approximate="tanh"``
+throughout.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from iris_tts_tpu_torch.config import VAEConfig
+from iris_tts_tpu_torch.models.layers import Conv1d, Dense
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+class FiLM(nn.Module):
+    """y = gamma(cond) * x + beta(cond), on ``[B, C, T]``."""
+
+    def __init__(self, cond_dim: int, channels: int):
+        super().__init__()
+        self.proj = Dense(cond_dim, 2 * channels)
+
+    def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+        gamma, beta = self.proj.forward_ct(cond).chunk(2, dim=1)
+        return gamma * x + beta
+
+
+class WaveNetResBlock(nn.Module):
+    """x + res_proj(FiLM(gelu(dilated_conv(x)), cond))."""
+
+    def __init__(self, channels: int, cond_dim: int, kernel_size: int,
+                 dilation: int):
+        super().__init__()
+        self.conv = Conv1d(channels, channels, kernel_size, dilation=dilation)
+        self.film = FiLM(cond_dim, channels)
+        self.res_proj = Conv1d(channels, channels, 1)
+
+    def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+        h = self.film(_gelu(self.conv(x)), cond)
+        return x + self.res_proj(h)
+
+
+class TemporalDownsample(nn.Module):
+    """num_stages × [stride-2 'SAME' conv → GELU]: T → T / 2**num_stages.
+    An odd total pad goes on the right, as XLA's 'SAME' puts it."""
+
+    def __init__(self, in_channels: int, channels: int, num_stages: int = 2,
+                 kernel_size: int = 5):
+        super().__init__()
+        self.num_stages = num_stages
+        for i in range(num_stages):
+            self.add_module(f"conv_{i}", Conv1d(
+                in_channels if i == 0 else channels, channels, kernel_size,
+                stride=2))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.num_stages):
+            x = _gelu(getattr(self, f"conv_{i}")(x))
+        return x
+
+
+class TemporalUpsample(nn.Module):
+    """num_stages × [repeat-2× → conv → GELU]."""
+
+    def __init__(self, channels: int, num_stages: int = 2,
+                 kernel_size: int = 5):
+        super().__init__()
+        self.num_stages = num_stages
+        for i in range(num_stages):
+            self.add_module(f"conv_{i}", Conv1d(channels, channels,
+                                                kernel_size))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.num_stages):
+            x = torch.repeat_interleave(x, 2, dim=2)
+            x = _gelu(getattr(self, f"conv_{i}")(x))
+        return x
+
+
+class APCoupling(nn.Module):
+    """Additive coupling (volume-preserving) with a FiLM-modulated
+    translation; the output conv is zero-initialised."""
+
+    def __init__(self, channels: int, hidden_channels: int, cond_dim: int):
+        super().__init__()
+        half = channels // 2
+        self.cond_proj = Dense(cond_dim, half)
+        self.net_pre = Conv1d(half, hidden_channels, 3)
+        self.net_post = Conv1d(hidden_channels, half, 1, init="zeros")
+        self.film = FiLM(half, half)
+
+    def forward(self, x: torch.Tensor, cond: torch.Tensor,
+                reverse: bool = False) -> torch.Tensor:
+        x1, x2 = x.chunk(2, dim=1)
+        cond_embed = _gelu(self.cond_proj.forward_ct(cond))
+        h = _gelu(self.net_pre(x1 + cond_embed))
+        t = self.film(self.net_post(h), cond_embed)
+        y2 = x2 - t if reverse else x2 + t
+        return torch.cat([x1, y2], dim=1)
+
+
+class VolumePreservingFlow(nn.Module):
+    """Stack of additive couplings; exactly invertible."""
+
+    def __init__(self, channels: int, num_layers: int, hidden_channels: int,
+                 cond_dim: int):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f"ap_{i}", APCoupling(channels, hidden_channels,
+                                                  cond_dim))
+
+    def forward(self, x: torch.Tensor, cond: torch.Tensor,
+                reverse: bool = False) -> torch.Tensor:
+        order = range(self.num_layers)
+        for i in (reversed(order) if reverse else order):
+            x = getattr(self, f"ap_{i}")(x, cond, reverse=reverse)
+        return x
+
+
+class TextConditionedVAE(nn.Module):
+    """Triple-conditioned VAE; ``generate`` is the inference path."""
+
+    def __init__(self, config: VAEConfig = VAEConfig()):
+        super().__init__()
+        cfg = self.config = config
+        c, k = cfg.model_channels, cfg.wavenet_kernel_size
+        self.in_proj = Conv1d(cfg.n_mels, c, 1)
+        for i in range(cfg.num_wavenet_blocks):
+            self.add_module(f"enc_block_{i}", WaveNetResBlock(
+                c, cfg.cond_dim, k, dilation=2 ** (i % 4)))
+        self.downsample = TemporalDownsample(c, c, cfg.down_stages, 5)
+        self.down_cond_proj = Conv1d(cfg.cond_dim, c, 1)
+        self.latent_mean_proj = Dense(c, cfg.latent_dim)
+        self.latent_logvar_proj = Dense(c, cfg.latent_dim, zero_init=True)
+        self.vpflow = VolumePreservingFlow(cfg.latent_dim, cfg.flow_layers,
+                                           cfg.flow_hidden, c)
+        self.latent_dec_proj = Dense(cfg.latent_dim, c)
+        for i in range(cfg.decoder_blocks):
+            self.add_module(f"dec_block_{i}", WaveNetResBlock(
+                c, c, k, dilation=2 ** (i % 4)))
+        self.upsample = TemporalUpsample(c, cfg.down_stages, 5)
+        self.out_proj = Conv1d(c, cfg.n_mels, 1)
+        self.residual_proj = Dense(c, cfg.cond_dim)
+
+    def latent_cond(self, frame_cond_ct: torch.Tensor) -> torch.Tensor:
+        """Frame-rate cond [B, cond, T] → latent-rate cond [B, C, T']."""
+        return self.downsample(self.down_cond_proj(frame_cond_ct))
+
+    def decode(self, z_ct: torch.Tensor, lat_cond: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Latent [B, latent, T'] → (mel [B, n_mels, T], residual
+        [B, cond, T])."""
+        d = self.latent_dec_proj.forward_ct(z_ct)
+        for i in range(self.config.decoder_blocks):
+            d = getattr(self, f"dec_block_{i}")(d, lat_cond)
+        d_up = self.upsample(d)
+        return self.out_proj(d_up), self.residual_proj.forward_ct(d_up)
+
+    def generate(
+        self,
+        frame_cond: torch.Tensor,
+        z_prior: Optional[torch.Tensor] = None,
+        temperature: float = 1.0,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Prior sample → inverse flow → decode.
+
+        Args:
+            frame_cond: [B, T, cond_dim]; T divisible by the down factor.
+            z_prior: optional [B, T', latent_dim] latent; when None it is
+                ``temperature`` × a standard normal drawn from
+                ``generator``.
+        Returns:
+            mel [B, T, n_mels], residual [B, T, cond_dim].
+        """
+        lat_cond = self.latent_cond(frame_cond.transpose(1, 2))
+        if z_prior is None:
+            b, tp = lat_cond.shape[0], lat_cond.shape[2]
+            z = temperature * torch.randn(
+                (b, self.config.latent_dim, tp), generator=generator,
+                device=lat_cond.device, dtype=lat_cond.dtype)
+        else:
+            z = z_prior.transpose(1, 2)
+        z = self.vpflow(z, lat_cond, reverse=True)
+        mel, residual = self.decode(z, lat_cond)
+        return mel.transpose(1, 2), residual.transpose(1, 2)
