@@ -8,8 +8,12 @@ every kernel against its plain PyTorch version:
 
 1. build the log-mel kernel (``iris_tts_tpu_torch/ops/csrc/log_mel.cu``)
    from the sources in this checkout;
-2. kernel vs plain version on 10 s audio, audio shorter than one tile of
-   frames, and a batch of 8 × 10 s (max-abs ≤ 2e-3), with their times;
+2. kernel vs plain version on 10 s audio, a 4000-sample clip, a
+   300-sample clip (both frames in the padding), a batch of 3 with an odd
+   length and a batch of 8 × 10 s (max-abs ≤ 2e-3), with the times of the
+   kernel, the plain version and a cuFFT yardstick (``torch.stft`` then
+   magnitude, mel matmul and log; the port never calls it) and the
+   kernel's bound;
 3. synthesis at full width: the fused path (one sentence) and the
    two-stage path (a batch of 4), with their latencies;
 4. copy synthesis: log-mel of the phase-3 audio through the kernel, then
@@ -28,6 +32,7 @@ does a host without a CUDA device.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -63,21 +68,40 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def time_cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of one call, by CUDA events around each call."""
-    for _ in range(warmup):
-        fn()
+def time_cuda_ms(fn, reps: int = 200, warmup: int = 5,
+                 graph: bool = True) -> float:
+    """Device time of one call: ``reps`` calls between one pair of CUDA
+    events, divided by ``reps``, after a warm-up. With ``graph`` the calls
+    are captured in one CUDA graph and replayed, so the host side of each
+    call (Python, allocation, the launch) stays out of the window even
+    where it takes longer than the device work; without it the calls are
+    issued eagerly back to back, which is what a caller in a loop sees."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
         start.record()
-        fn()
+        g.replay()
         end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    else:
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def time_host_ms(fn, reps: int = 5, warmup: int = 2) -> float:
@@ -100,11 +124,27 @@ def max_abs(a, b) -> float:
     return float((a - b).abs().max()) if a.numel() else 0.0
 
 
-def log_mel_work(batch: int, n_samples: int, cfg):
-    """(operations, bytes) the log-mel function needs for these inputs:
-    two [T, n_fft] @ [n_fft, n_freqs] contractions and one
-    [T, n_freqs] @ [n_freqs, n_mels] per row; each input read once
-    (audio, both DFT matrices, filterbank), the output written once."""
+def log_mel_work(batch: int, n_samples: int, cfg, tables):
+    """(operations, bytes) the log-mel function needs at least: per frame a
+    real FFT (2.5 n log2 n), the window (n), the magnitude (3 per bin), the
+    mel projection (2 per filterbank nonzero) and the log (1 per mel); the
+    audio read once, the output written once, and the window, twiddle and
+    sparse filterbank tables (``tables``, as the kernel reads them)."""
+    n = cfg.n_fft
+    t = 1 + n_samples // cfg.hop_length
+    per_frame = (2.5 * n * math.log2(n) + n + 3 * (n // 2 + 1)
+                 + 2 * tables.fb_weights.size + cfg.n_mels)
+    nbytes = (4 * (batch * n_samples + batch * t * cfg.n_mels)
+              + sum(a.nbytes for a in tables))
+    return batch * t * per_frame, nbytes
+
+
+def dense_dft_work(batch: int, n_samples: int, cfg):
+    """(operations, bytes) of the dense-DFT formulation, the yardstick of
+    the kernel's first design: two [T, n_fft] @ [n_fft, n_freqs]
+    contractions and one [T, n_freqs] @ [n_freqs, n_mels] per row; audio,
+    both DFT matrices and the filterbank read once, the output written
+    once."""
     t = 1 + n_samples // cfg.hop_length
     n_freqs = cfg.n_fft // 2 + 1
     flops = batch * t * (2 * 2 * cfg.n_fft * n_freqs
@@ -112,6 +152,25 @@ def log_mel_work(batch: int, n_samples: int, cfg):
     nbytes = 4 * (batch * n_samples + 2 * cfg.n_fft * n_freqs
                   + n_freqs * cfg.n_mels + batch * t * cfg.n_mels)
     return flops, nbytes
+
+
+def bound(flops: float, nbytes: float):
+    """(ms, "operations" or "bytes"): the larger of work over peak."""
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def log_mel_library(audio, cfg, window, fb_t):
+    """The same function from library calls (the yardstick, never called
+    by the port): cuFFT through ``torch.stft``, the floored magnitude, the
+    mel matmul and the clamped log, in f32."""
+    spec = torch.stft(audio, cfg.n_fft, cfg.hop_length, cfg.n_fft, window,
+                      center=True, pad_mode="constant", return_complex=True)
+    mag = torch.sqrt(torch.view_as_real(spec).square().sum(-1) + 1e-12)
+    mel = fb_t @ mag
+    return torch.log(torch.clamp(mel, min=cfg.log_clip_min)).transpose(-1, -2)
 
 
 def main() -> int:
@@ -128,6 +187,8 @@ def main() -> int:
     from iris_tts_tpu_torch.ops.stft import (
         log_mel_spectrogram,
         log_mel_spectrogram_plain,
+        mel_filterbank,
+        padded_window,
     )
 
     card = card_line()
@@ -147,19 +208,28 @@ def main() -> int:
     print(f"phase 1 build: log_mel.cu -> {lib_path.name} in {build_s:.1f} s; "
           f"ptxas: {ptxas_info}", flush=True)
 
-    # -- 2. kernel vs plain -----------------------------------------------
+    # -- 2. kernel vs plain, with the cuFFT yardstick ----------------------
     torch.backends.cuda.matmul.allow_tf32 = False  # plain version in f32
     cfg = AudioConfig()
+    tables = mel_cuda.kernel_tables(cfg)
+    window = torch.from_numpy(padded_window(cfg.n_fft, cfg.win_length)).to(dev)
+    fb_t = torch.from_numpy(mel_filterbank(
+        cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax).T.copy()
+    ).to(dev)
     gen = torch.Generator(device="cpu").manual_seed(0)
     sr = cfg.sample_rate
     t = torch.arange(10 * sr) / sr
     tone = 0.4 * torch.sin(2 * torch.pi * 440 * t)
+
+    def clip(*shape):
+        return tone[:shape[-1]] + 0.05 * torch.randn(*shape, generator=gen)
+
     inputs = {
-        "single_10s": tone + 0.05 * torch.randn(10 * sr, generator=gen),
-        "short": (tone[:4000]
-                  + 0.05 * torch.randn(4000, generator=gen)),  # 16 frames
-        "batch8_10s": (tone[None] + 0.05 * torch.randn(
-            8, 10 * sr, generator=gen)),
+        "single_10s": clip(10 * sr),
+        "short": clip(4000),          # 16 frames: one group of the kernel
+        "tiny_300": clip(300),        # 2 frames, both in the padding
+        "batch3_odd": clip(3, 70001),  # odd row length
+        "batch8_10s": clip(8, 10 * sr),
     }
     worst = 0.0
     timing = {}
@@ -168,24 +238,40 @@ def main() -> int:
         got = log_mel_spectrogram(a, cfg)
         torch.cuda.synchronize()
         want = log_mel_spectrogram_plain(a, cfg)
+        lib = log_mel_library(a, cfg, window, fb_t)
         err = max_abs(got, want)
+        lib_err = max_abs(lib, want)
         worst = max(worst, err)
         check(bool(torch.isfinite(got).all()), f"finite log-mel ({name})")
         check(err <= 2e-3, f"kernel vs plain max-abs {err} <= 2e-3 ({name})")
+        check(lib_err <= 2e-3,
+              f"yardstick vs plain max-abs {lib_err} <= 2e-3 ({name})")
         k_ms = time_cuda_ms(lambda: mel_cuda.log_mel_cuda(a, cfg))
         p_ms = time_cuda_ms(lambda: log_mel_spectrogram_plain(a, cfg))
-        timing[name] = (k_ms, p_ms)
+        l_ms = time_cuda_ms(lambda: log_mel_library(a, cfg, window, fb_t))
+        e_ms = time_cuda_ms(lambda: mel_cuda.log_mel_cuda(a, cfg),
+                            graph=False)
+        flops, nbytes = log_mel_work(a.shape[0] if a.dim() > 1 else 1,
+                                     a.shape[-1], cfg, tables)
+        b_ms, b_by = bound(flops, nbytes)
+        timing[name] = (k_ms, p_ms, l_ms, b_ms, b_by)
         print(f"phase 2 log-mel {name} {tuple(a.shape)} -> "
-              f"{tuple(got.shape)}: max-abs {err:.3e}; kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms (median of 20; {card})", flush=True)
+              f"{tuple(got.shape)}: max-abs {err:.3e} (yardstick "
+              f"{lib_err:.3e}); kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms, "
+              f"cuFFT yardstick {l_ms:.5f} ms, bound {b_ms:.5f} ms "
+              f"({b_by}; {flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB), "
+              f"kernel/bound {k_ms / b_ms:.2f}x; kernel issued eagerly "
+              f"{e_ms:.5f} ms a call (device times: CUDA graph of 200 "
+              f"calls; {card})", flush=True)
     b8 = inputs["batch8_10s"]
-    flops, nbytes = log_mel_work(b8.shape[0], b8.shape[1], cfg)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"phase 2 bound at batch8_10s: {flops / 1e9:.2f} GFLOP, "
-          f"{nbytes / 1e6:.2f} MB -> {bound_ms:.4f} ms ({bound_by}); the "
-          f"kernel takes {timing['batch8_10s'][0] / bound_ms:.2f}x the bound",
+    k_ms, p_ms, l_ms, bound_ms, bound_by = timing["batch8_10s"]
+    d_flops, d_bytes = dense_dft_work(b8.shape[0], b8.shape[1], cfg)
+    d_ms, d_by = bound(d_flops, d_bytes)
+    print(f"phase 2 bound at batch8_10s: FFT count {bound_ms:.5f} ms "
+          f"({bound_by}), kernel {k_ms / bound_ms:.2f}x it; the dense-DFT "
+          f"count of the first design {d_flops / 1e9:.2f} GFLOP, "
+          f"{d_bytes / 1e6:.2f} MB -> {d_ms:.4f} ms ({d_by}); worst kernel "
+          f"max-abs {worst:.3e}",
           flush=True)
 
     # -- main path: phases 3 and 4 ------------------------------------------
@@ -277,7 +363,6 @@ def main() -> int:
         print("profile fused synthesize: the profiler recorded no device "
               "time (not measured)", flush=True)
 
-    k_ms, p_ms = timing["batch8_10s"]
     jax_pkg = iris_tts_tpu_torch.__name__.removesuffix("_torch")
     kernels = [{
         "name": "log_mel",
@@ -290,7 +375,7 @@ def main() -> int:
         "plain_ms": p_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
-        "library_ms": None,
+        "library_ms": l_ms,
     }]
     print(card)
     print(json.dumps({"kernels": kernels}))

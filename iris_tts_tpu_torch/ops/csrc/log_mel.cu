@@ -1,158 +1,418 @@
 // Fused log-mel spectrogram for Hopper (sm_90a), IEEE f32 throughout.
 //
 // Replaces the JAX package's Pallas TPU kernel `_mel_kernel`
-// (ops/mel_pallas.py, launched by `log_mel_spectrogram_pallas` through
-// pl.pallas_call). Same function, not the same block structure:
+// (iris_tts_tpu/ops/mel_pallas.py, launched by `log_mel_spectrogram_pallas`
+// through pl.pallas_call). Same function, another algorithm:
 //
-//   audio [B, N] --centre zero pad n_fft/2, frames at hop--> [T, n_fft]
-//   re, im = frames @ DFT_re, frames @ DFT_im        (window folded in)
-//   mag    = sqrt(re^2 + im^2 + 1e-12)
-//   out    = log(max(mag @ mel_fb, log_clip_min))    -> [B, T, n_mels]
+//   audio [B, N] --centre zero pad n_fft/2, frames at hop (never stored)-->
+//   Hann window --> rfft --> sqrt(re^2 + im^2 + 1e-12) --> @ mel_fb
+//   --> log(max(., log_clip_min)) --> [B, T, n_mels]
 //
-// The magnitude follows the JAX package's XLA path (and this package's
-// plain version, ops/stft.py): a 1e-12 floor under the root. The Pallas
-// kernel takes the root with no floor; the two differ by at most 1e-6 in a
-// magnitude, far below the 1e-5 log clip.
+// The 1e-12 floor under the root is the one of this package's plain version
+// and of the JAX package's XLA path (ops/stft.py).
 //
-// What bounds it on the card: operations. At B=8 x 10 s (T=862) the two
-// DFT contractions are ~14.5 GFLOP against ~10 MB of unique bytes, far
-// above the card's f32 balance point. TF32 tensor cores are not accurate
-// enough (one reduced-precision pass cost ~1e-1 max-abs on the TPU), so
-// this first version uses plain f32 FMAs on the CUDA cores.
+// What bounds it on the card. The TPU kernel evaluates the DFT as two dense
+// [T, n_fft] x [n_fft, n_freqs] products on the MXU, ~2.1 MFLOP a frame at
+// n_fft 1024. An FFT needs ~26 kFLOP a frame, 80x fewer. With the FFT the
+// whole function does ~0.2 GFLOP and moves ~9.3 MB at B=8 x 10 s: its least
+// time on the card is ~3 us and it sits below the card's balance point, so
+// tensor cores would buy FLOP/s that the function does not need. What costs
+// time is inside the SM: the FFT's exchanges between threads go through
+// shared memory, a load and a store of every complex point a stage, and
+// each warp's chain of stages waits on them. So the design keeps every
+// intermediate on chip, moves as few bytes as it can, and keeps 16 warps an
+// SM in flight (128 registers, ~106 KB of shared memory a block):
 //
-// Design:
-// * grid = (frame tiles of 32, batch rows); 256 threads per block.
-// * The frame matrix is never materialised: a block stages the waveform
-//   span its 32 frames cover ((32-1)*hop + n_fft samples) in shared memory
-//   once, with the centre padding done by index arithmetic, and reads frame
-//   t, sample n at wave[t*hop + n].
-// * The DFT runs in passes of 64 bins; each pass streams the two DFT
-//   matrices through shared memory in chunks of 32 rows. A thread owns
-//   4 frames x 2 bins (re and im: 16 accumulators); the 4 frames of a warp
-//   are the same for all its lanes, so their reads are broadcasts.
-// * After each pass the block turns its [32, 64] re/im tile into
-//   magnitudes in shared memory and folds them into the [32, n_mels] mel
-//   accumulators (also in shared memory), so the [T, 513] spectrum never
-//   reaches device memory.
-// * The epilogue applies log(max(., clip)) and writes [B, T, n_mels].
+// * One warp transforms a pair of frames: frame a as the real part, frame b
+//   as the imaginary part of one complex n_fft-point FFT, split afterwards
+//   by X_a[k] = (Z[k] + conj Z[N-k]) / 2, X_b[k] = (Z[k] - conj Z[N-k]) / 2i.
+// * Radix-4 Stockham stages (one radix-2 stage first when log2 n_fft is
+//   odd) in a warp-private n_fft-point buffer in shared memory. A stage
+//   reads all its inputs into registers, __syncwarp, then writes its
+//   outputs in place, so one buffer serves all stages. The first stage
+//   reads the two frames straight from the staged waveform and applies the
+//   window as it loads. Twiddles come from a table built on the host in
+//   float64 (no __sincosf), read through the read-only cache: W^k a
+//   butterfly, W^2k and W^3k by products. (Padding or swizzling the buffer
+//   against the 2- to 4-way bank conflicts of the first stages' stores
+//   measured slower: the extra addressing spilled past the 128 registers
+//   that two blocks an SM allow.)
+// * The epilogue splits the pair, turns the n_fft/2+1 bins of each frame
+//   into magnitudes in the same buffer, folds them into n_mels outputs
+//   through a sparse filterbank (each triangle's first bin and its run of
+//   nonzero weights), applies the log and writes n_mels contiguous floats
+//   a frame. Only the output reaches device memory. The filterbank tables
+//   are copied into shared memory once a block.
+// * A block (8 warps) owns a group of 16 frames at a time and stages the
+//   group's waveform span, 15*hop + n_fft samples, in shared memory with
+//   16-byte cp.async copies; samples outside [0, N) (the centre padding) are
+//   zero-filled by index. Blocks are persistent, as many as fit on the card
+//   (2 an SM at n_fft 1024), and double-buffer: the next group's span is in
+//   flight while the current group is transformed.
 
 #include <cuda_runtime.h>
 
+#include <climits>
+#include <cstdint>
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTileT = 32;  // frames per block
-constexpr int kTileF = 64;  // frequency bins per pass
-constexpr int kTileN = 32;  // DFT rows per staged chunk
-constexpr int kTT = 4;      // frames per thread: tt + 8*i
-constexpr int kTF = 2;      // bins per thread:   tf + 32*j
-static_assert((kTileT / kTT) * (kTileF / kTF) == kThreads, "thread layout");
-static_assert(kTileF / kTF == 32, "one warp spans the bins of a pass");
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kGroup = 2 * kWarps;  // frames per group: one pair per warp
 
-__global__ void __launch_bounds__(kThreads)
-log_mel_kernel(const float* __restrict__ audio,  // [B, N]
-               const float* __restrict__ dft_re,  // [n_fft, n_freqs]
-               const float* __restrict__ dft_im,  // [n_fft, n_freqs]
-               const float* __restrict__ fb,      // [n_freqs, n_mels]
-               float* __restrict__ out,           // [B, T, n_mels]
-               int n_samples, int n_frames, int n_fft, int hop, int n_freqs,
-               int n_mels, float log_clip_min) {
-  extern __shared__ float smem[];
-  const int seg_len = (kTileT - 1) * hop + n_fft;
-  float* wave = smem;                       // [seg_len]
-  float* w_re = wave + seg_len;             // [kTileN][kTileF]
-  float* w_im = w_re + kTileN * kTileF;     // [kTileN][kTileF]
-  float* mag = w_im + kTileN * kTileF;      // [kTileT][kTileF]
-  float* mel = mag + kTileT * kTileF;       // [kTileT][n_mels]
+__host__ __device__ constexpr int log2_of(int n) {
+  return n <= 1 ? 0 : 1 + log2_of(n / 2);
+}
 
-  const int tid = threadIdx.x;
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * kTileT;
-  const float* x = audio + static_cast<size_t>(b) * n_samples;
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
 
-  // Waveform span of this block's frames, zero outside [0, N): that is
-  // the centre padding of n_fft/2 on each side.
-  const int s0 = t0 * hop - n_fft / 2;
-  for (int i = tid; i < seg_len; i += kThreads) {
-    const int s = s0 + i;
-    wave[i] = (s >= 0 && s < n_samples) ? x[s] : 0.0f;
-  }
-  for (int i = tid; i < kTileT * n_mels; i += kThreads) mel[i] = 0.0f;
+// In-register DFT of size R, forward sign (W = exp(-2 pi i / R)).
+template <int R>
+__device__ __forceinline__ void dft(float2 (&v)[R]);
 
-  const int tf = tid % 32;
-  const int tt = tid / 32;
+template <>
+__device__ __forceinline__ void dft<2>(float2 (&v)[2]) {
+  const float2 a = v[0];
+  v[0] = make_float2(a.x + v[1].x, a.y + v[1].y);
+  v[1] = make_float2(a.x - v[1].x, a.y - v[1].y);
+}
 
-  for (int f0 = 0; f0 < n_freqs; f0 += kTileF) {
-    float acc_re[kTT][kTF];
-    float acc_im[kTT][kTF];
+template <>
+__device__ __forceinline__ void dft<4>(float2 (&v)[4]) {
+  const float2 a0 = make_float2(v[0].x + v[2].x, v[0].y + v[2].y);
+  const float2 a1 = make_float2(v[0].x - v[2].x, v[0].y - v[2].y);
+  const float2 a2 = make_float2(v[1].x + v[3].x, v[1].y + v[3].y);
+  // (v1 - v3) * (-i)
+  const float2 a3 = make_float2(v[1].y - v[3].y, v[3].x - v[1].x);
+  v[0] = make_float2(a0.x + a2.x, a0.y + a2.y);
+  v[1] = make_float2(a1.x + a3.x, a1.y + a3.y);
+  v[2] = make_float2(a0.x - a2.x, a0.y - a2.y);
+  v[3] = make_float2(a1.x - a3.x, a1.y - a3.y);
+}
+
+// First stage (Ns = 1, no twiddles): butterfly j reads samples j + r*N/R of
+// frames a and b, windows them, and writes z[j*R + r].
+template <int N, int R>
+__device__ __forceinline__ void first_stage(float2* z, const float* fa,
+                                            const float* fb,
+                                            const float* __restrict__ window,
+                                            int lane) {
+  constexpr int kBfly = N / R;
 #pragma unroll
-    for (int i = 0; i < kTT; ++i)
+  for (int i = 0; i < (kBfly + 31) / 32; ++i) {
+    const int j = lane + 32 * i;
+    if (kBfly % 32 == 0 || j < kBfly) {
+      float2 v[R];
 #pragma unroll
-      for (int j = 0; j < kTF; ++j) acc_re[i][j] = acc_im[i][j] = 0.0f;
-
-    for (int n0 = 0; n0 < n_fft; n0 += kTileN) {
-      // The previous chunk (or the previous pass's mel fold) is consumed.
-      __syncthreads();
-      for (int i = tid; i < kTileN * kTileF; i += kThreads) {
-        const int nn = i / kTileF;
-        const int f = f0 + i % kTileF;
-        const size_t g = static_cast<size_t>(n0 + nn) * n_freqs + f;
-        const bool ok = f < n_freqs;
-        w_re[i] = ok ? dft_re[g] : 0.0f;
-        w_im[i] = ok ? dft_im[g] : 0.0f;
+      for (int r = 0; r < R; ++r) {
+        const int n = j + r * kBfly;
+        const float w = __ldg(window + n);
+        v[r] = make_float2(fa[n] * w, fb[n] * w);
       }
-      __syncthreads();
-#pragma unroll 8
-      for (int nn = 0; nn < kTileN; ++nn) {
-        float xv[kTT];
+      dft<R>(v);
 #pragma unroll
-        for (int i = 0; i < kTT; ++i)
-          xv[i] = wave[(tt + 8 * i) * hop + n0 + nn];
+      for (int r = 0; r < R; ++r) z[j * R + r] = v[r];
+    }
+  }
+  __syncwarp();
+}
+
+// A later Stockham stage, in place: butterfly j reads z[j + r*N/R], applies
+// the twiddle W_N^((j % Ns) * r * N / (Ns*R)) and writes
+// z[(j / Ns) * Ns * R + j % Ns + r * Ns].
+template <int N, int R, int Ns>
+__device__ __forceinline__ void stockham_stage(float2* z,
+                                               const float2* __restrict__ tw,
+                                               int lane) {
+  constexpr int kBfly = N / R;
+  constexpr int kPer = (kBfly + 31) / 32;
+  float2 v[kPer][R];
 #pragma unroll
-        for (int j = 0; j < kTF; ++j) {
-          const float wr = w_re[nn * kTileF + tf + 32 * j];
-          const float wi = w_im[nn * kTileF + tf + 32 * j];
+  for (int i = 0; i < kPer; ++i) {
+    const int j = lane + 32 * i;
+    if (kBfly % 32 == 0 || j < kBfly) {
 #pragma unroll
-          for (int i = 0; i < kTT; ++i) {
-            acc_re[i][j] = fmaf(xv[i], wr, acc_re[i][j]);
-            acc_im[i][j] = fmaf(xv[i], wi, acc_im[i][j]);
-          }
-        }
+      for (int r = 0; r < R; ++r) v[i][r] = z[j + r * kBfly];
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int j = lane + 32 * i;
+    if (kBfly % 32 == 0 || j < kBfly) {
+      // W^k from the table; W^2k and W^3k by products, which saves two
+      // of three loads at a cost of an ulp or so.
+      const int k = j % Ns;
+      const float2 w1 = __ldg(tw + k * (N / (Ns * R)));
+      v[i][1] = cmul(v[i][1], w1);
+      if constexpr (R == 4) {
+        const float2 w2 = cmul(w1, w1);
+        v[i][2] = cmul(v[i][2], w2);
+        v[i][3] = cmul(v[i][3], cmul(w1, w2));
+      }
+      dft<R>(v[i]);
+      const int d = (j / Ns) * Ns * R + k;
+#pragma unroll
+      for (int r = 0; r < R; ++r) z[d + r * Ns] = v[i][r];
+    }
+  }
+  __syncwarp();
+}
+
+template <int N, int Ns>
+__device__ __forceinline__ void radix4_stages(float2* z,
+                                              const float2* __restrict__ tw,
+                                              int lane) {
+  if constexpr (Ns < N) {
+    stockham_stage<N, 4, Ns>(z, tw, lane);
+    radix4_stages<N, Ns * 4>(z, tw, lane);
+  }
+}
+
+// Z = FFT(window * (frame a + i frame b)), natural order, in z.
+template <int N>
+__device__ __forceinline__ void fft_pair(float2* z, const float* fa,
+                                         const float* fb,
+                                         const float* __restrict__ window,
+                                         const float2* __restrict__ tw,
+                                         int lane) {
+  if constexpr (log2_of(N) % 2 == 1) {
+    first_stage<N, 2>(z, fa, fb, window, lane);
+    radix4_stages<N, 2>(z, tw, lane);
+  } else {
+    first_stage<N, 4>(z, fa, fb, window, lane);
+    radix4_stages<N, 4>(z, tw, lane);
+  }
+}
+
+// Splits Z into the two frames' spectra and overwrites the buffer with
+// their magnitudes: frame a at floats [0, N/2], frame b at [N, N + N/2].
+template <int N>
+__device__ __forceinline__ void split_magnitudes(float2* z, int lane) {
+  constexpr int kHalf = N / 2;
+  constexpr int kPer = (kHalf + 31) / 32;
+  float2 p[kPer], q[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int k = lane + 32 * i;
+    if (kHalf % 32 == 0 || k < kHalf) {
+      p[i] = z[k];
+      q[i] = z[(N - k) & (N - 1)];
+    }
+  }
+  const float2 mid = z[kHalf];  // its own conjugate partner
+  __syncwarp();
+  float* mag = reinterpret_cast<float*>(z);
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int k = lane + 32 * i;
+    if (kHalf % 32 == 0 || k < kHalf) {
+      const float re_a = 0.5f * (p[i].x + q[i].x);
+      const float im_a = 0.5f * (p[i].y - q[i].y);
+      const float re_b = 0.5f * (p[i].y + q[i].y);
+      const float im_b = 0.5f * (q[i].x - p[i].x);
+      mag[k] = sqrtf(re_a * re_a + im_a * im_a + 1e-12f);
+      mag[N + k] = sqrtf(re_b * re_b + im_b * im_b + 1e-12f);
+    }
+  }
+  if (lane == 0) {
+    mag[kHalf] = sqrtf(mid.x * mid.x + 1e-12f);
+    mag[N + kHalf] = sqrtf(mid.y * mid.y + 1e-12f);
+  }
+  __syncwarp();
+}
+
+// Where group g's waveform span lies: row b, frames t0.., and the staged
+// copy starting `shift` samples before the first frame's first sample so
+// that every 16-byte chunk of the copy is aligned in device memory.
+struct Span {
+  int b;          // batch row
+  long long row;  // offset of row b in audio
+  int t0;         // first frame of the group
+  int start;      // row-relative sample of staged element 0
+  int shift;      // staged index of the first frame's first sample
+  int chunks;     // 4-sample chunks to stage
+};
+
+__device__ __forceinline__ Span group_span(int g, int groups_per_row,
+                                           const float* audio, int n_samples,
+                                           int n_fft, int hop) {
+  Span s;
+  s.b = g / groups_per_row;
+  s.t0 = (g % groups_per_row) * kGroup;
+  s.row = static_cast<long long>(s.b) * n_samples;
+  const int s0 = s.t0 * hop - n_fft / 2;
+  const long long word = static_cast<long long>(
+      reinterpret_cast<uintptr_t>(audio) / sizeof(float));
+  s.shift = static_cast<int>((word + s.row + s0) & 3);
+  s.start = s0 - s.shift;
+  s.chunks = (s.shift + (kGroup - 1) * hop + n_fft + 3) / 4;
+  return s;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most the newest committed group is still in flight.
+__device__ __forceinline__ void cp_async_wait_all_but_newest() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Starts the copy of a group's span into `dst`, zero outside [0, N).
+__device__ __forceinline__ void stage_span(float* dst, const Span& s,
+                                           const float* audio, int n_samples) {
+  const float* row = audio + s.row;
+  for (int c = threadIdx.x; c < s.chunks; c += kThreads) {
+    const int first = s.start + 4 * c;
+    float* d = dst + 4 * c;
+    if (first >= 0 && first + 3 < n_samples) {
+      cp_async16(d, row + first);
+    } else if (first + 3 < 0 || first >= n_samples) {
+      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = first + e;
+        if (i >= 0 && i < n_samples)
+          cp_async4(d + e, row + i);
+        else
+          d[e] = 0.f;
       }
     }
+  }
+}
 
-#pragma unroll
-    for (int i = 0; i < kTT; ++i)
-#pragma unroll
-      for (int j = 0; j < kTF; ++j) {
-        const float re = acc_re[i][j];
-        const float im = acc_im[i][j];
-        mag[(tt + 8 * i) * kTileF + tf + 32 * j] =
-            sqrtf(re * re + im * im + 1e-12f);
-      }
+template <int N>
+__global__ void __launch_bounds__(kThreads, N <= 1024 ? 2 : 1)
+log_mel_kernel(const float* __restrict__ audio,      // [B, n_samples]
+               const float* __restrict__ window,     // [N]
+               const float2* __restrict__ twiddles,  // [N]: W_N^k
+               const int* __restrict__ fb_first,     // [n_mels]
+               const int* __restrict__ fb_offset,    // [n_mels + 1]
+               const float* __restrict__ fb_weights, // [nnz]
+               float* __restrict__ out,              // [B, T, n_mels]
+               int batch, int n_samples, int n_frames, int hop, int n_mels,
+               int nnz, float log_clip_min, int wave_cap) {
+  // Shared memory: two waveform spans, one FFT buffer a warp, and the
+  // sparse filterbank, whose run-length loop would otherwise wait on the
+  // cache at every step.
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  float2* z = reinterpret_cast<float2*>(smem + 2 * wave_cap) + warp * N;
+  float* weights = smem + 2 * wave_cap + 2 * kWarps * N;
+  int* first = reinterpret_cast<int*>(weights + nnz);
+  int* offset = first + n_mels;
+  for (int i = threadIdx.x; i < nnz; i += kThreads) weights[i] = fb_weights[i];
+  for (int i = threadIdx.x; i < n_mels; i += kThreads) first[i] = fb_first[i];
+  for (int i = threadIdx.x; i <= n_mels; i += kThreads)
+    offset[i] = fb_offset[i];
+  const int groups_per_row = (n_frames + kGroup - 1) / kGroup;
+  const int n_groups = batch * groups_per_row;
+
+  int buf = 0;
+  int g = blockIdx.x;
+  if (g < n_groups)
+    stage_span(smem, group_span(g, groups_per_row, audio, n_samples, N, hop),
+               audio, n_samples);
+  cp_async_commit();
+  for (; g < n_groups; g += gridDim.x) {
+    const int next = g + gridDim.x;
+    if (next < n_groups)
+      stage_span(smem + (buf ^ 1) * wave_cap,
+                 group_span(next, groups_per_row, audio, n_samples, N, hop),
+                 audio, n_samples);
+    cp_async_commit();
+    cp_async_wait_all_but_newest();
     __syncthreads();
 
-    // mel[t][m] += sum over this pass's bins of mag[t][f] * fb[f][m].
-    const int nf = min(kTileF, n_freqs - f0);
-    for (int i = tid; i < kTileT * n_mels; i += kThreads) {
-      const int t = i / n_mels;
-      const int m = i % n_mels;
-      const float* mrow = mag + t * kTileF;
-      const float* fcol = fb + static_cast<size_t>(f0) * n_mels + m;
-      float s = mel[i];
-      for (int fl = 0; fl < nf; ++fl)
-        s = fmaf(mrow[fl], fcol[static_cast<size_t>(fl) * n_mels], s);
-      mel[i] = s;
+    const Span s = group_span(g, groups_per_row, audio, n_samples, N, hop);
+    const int ta = s.t0 + 2 * warp;
+    if (ta < n_frames) {
+      const float* fa = smem + buf * wave_cap + s.shift + 2 * warp * hop;
+      fft_pair<N>(z, fa, fa + hop, window, twiddles, lane);
+      split_magnitudes<N>(z, lane);
+      const float* mag = reinterpret_cast<const float*>(z);
+      const bool has_b = ta + 1 < n_frames;
+      const long long frame0 = static_cast<long long>(s.b) * n_frames + ta;
+      float* out_a = out + frame0 * n_mels;
+      for (int m = lane; m < n_mels; m += 32) {
+        const int o0 = offset[m];
+        const int o1 = offset[m + 1];
+        const int bin = first[m] - o0;  // bin of weight o: bin + o
+        float sa = 0.f, sb = 0.f;
+#pragma unroll 4
+        for (int o = o0; o < o1; ++o) {
+          sa = fmaf(mag[bin + o], weights[o], sa);
+          sb = fmaf(mag[N + bin + o], weights[o], sb);
+        }
+        out_a[m] = logf(fmaxf(sa, log_clip_min));
+        if (has_b) out_a[n_mels + m] = logf(fmaxf(sb, log_clip_min));
+      }
     }
+    // Every warp is done with this span before the next iteration stages
+    // into it.
+    __syncthreads();
+    buf ^= 1;
   }
+}
 
-  // Each thread reads back only the mel entries it accumulated itself.
-  for (int i = tid; i < kTileT * n_mels; i += kThreads) {
-    const int t = t0 + i / n_mels;
-    if (t < n_frames)
-      out[(static_cast<size_t>(b) * n_frames + t) * n_mels + i % n_mels] =
-          logf(fmaxf(mel[i], log_clip_min));
-  }
+template <int N>
+int launch(const float* audio, const float* window, const float* twiddles,
+           const int* fb_first, const int* fb_offset, const float* fb_weights,
+           float* out, int batch, int n_samples, int n_frames, int hop,
+           int n_mels, int nnz, float log_clip_min, cudaStream_t stream) {
+  const long long span = static_cast<long long>(kGroup - 1) * hop + N;
+  const long long wave_cap = (span + 3 + 3) / 4 * 4;
+  const long long smem =
+      4 * (2 * wave_cap + 2LL * kWarps * N + nnz + 2LL * n_mels + 1);
+  const long long groups =
+      static_cast<long long>(batch) * ((n_frames + kGroup - 1) / kGroup);
+  if (groups > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int max_smem = 0, sms = 0;
+  err = cudaDeviceGetAttribute(&max_smem,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > max_smem) return static_cast<int>(cudaErrorInvalidValue);
+  err = cudaFuncSetAttribute(log_mel_kernel<N>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, log_mel_kernel<N>, kThreads, static_cast<size_t>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long resident = static_cast<long long>(per_sm) * sms;
+  const int blocks = static_cast<int>(groups < resident ? groups : resident);
+  log_mel_kernel<N><<<blocks, kThreads, static_cast<size_t>(smem), stream>>>(
+      audio, window, reinterpret_cast<const float2*>(twiddles), fb_first,
+      fb_offset, fb_weights, out, batch, n_samples, n_frames, hop, n_mels,
+      nnz, log_clip_min, static_cast<int>(wave_cap));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -160,37 +420,33 @@ log_mel_kernel(const float* __restrict__ audio,  // [B, N]
 extern "C" {
 
 // Launches the kernel on `stream`; returns a cudaError_t (0 = launched).
-// Does not synchronise: a fault during the run surfaces at the caller's
-// next synchronisation.
-int iris_log_mel(const float* audio, const float* dft_re,
-                 const float* dft_im, const float* fb, float* out, int batch,
-                 int n_samples, int n_frames, int n_fft, int hop, int n_freqs,
-                 int n_mels, float log_clip_min, void* stream) {
-  if (batch <= 0 || batch > 65535 || n_frames <= 0 || n_fft % kTileN != 0 ||
-      hop <= 0 || n_freqs <= 0 || n_mels <= 0)
+// n_fft is a power of two in [64, 2048]. Does not synchronise: a fault
+// during the run surfaces at the caller's next synchronisation.
+int iris_log_mel(const float* audio, const float* window,
+                 const float* twiddles, const int* fb_first,
+                 const int* fb_offset, const float* fb_weights, float* out,
+                 int batch, int n_samples, int n_frames, int n_fft, int hop,
+                 int n_mels, int nnz, float log_clip_min, void* stream) {
+  if (batch <= 0 || n_samples < 0 || n_frames <= 0 || hop <= 0 ||
+      n_mels <= 0 || nnz < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      sizeof(float) *
-      (static_cast<size_t>(kTileT - 1) * hop + n_fft + 2 * kTileN * kTileF +
-       kTileT * kTileF + static_cast<size_t>(kTileT) * n_mels);
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int max_smem = 0;
-  err = cudaDeviceGetAttribute(
-      &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem > static_cast<size_t>(max_smem))
-    return static_cast<int>(cudaErrorInvalidValue);
-  err = cudaFuncSetAttribute(log_mel_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n_frames + kTileT - 1) / kTileT, batch);
-  log_mel_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      audio, dft_re, dft_im, fb, out, n_samples, n_frames, n_fft, hop,
-      n_freqs, n_mels, log_clip_min);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define IRIS_LOG_MEL_CASE(n)                                               \
+  case n:                                                                  \
+    return launch<n>(audio, window, twiddles, fb_first, fb_offset,         \
+                     fb_weights, out, batch, n_samples, n_frames, hop,     \
+                     n_mels, nnz, log_clip_min, s);
+  switch (n_fft) {
+    IRIS_LOG_MEL_CASE(64)
+    IRIS_LOG_MEL_CASE(128)
+    IRIS_LOG_MEL_CASE(256)
+    IRIS_LOG_MEL_CASE(512)
+    IRIS_LOG_MEL_CASE(1024)
+    IRIS_LOG_MEL_CASE(2048)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef IRIS_LOG_MEL_CASE
 }
 
 const char* iris_cuda_error_string(int code) {

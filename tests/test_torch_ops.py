@@ -130,8 +130,10 @@ def _audio(n, seed=1337):
 
 _MEL_INPUTS = {
     "single": lambda: _audio(22050),
-    "short": lambda: _audio(4000),  # fewer frames than one kernel tile
+    "short": lambda: _audio(4000),  # one group of the kernel's frames
     "batched": lambda: np.stack([_audio(8000, 1), _audio(8000, 2)]),
+    "tiny_300": lambda: _audio(300),  # 2 frames, both in the padding
+    "odd_batch": lambda: np.stack([_audio(70001, s) for s in (3, 4, 5)]),
 }
 
 
