@@ -19,14 +19,26 @@ every kernel against its plain PyTorch version:
 4. copy synthesis: log-mel of the phase-3 audio through the kernel, then
    ``vocode``;
 5. the same pipeline on the card and on the CPU at temperature 0: equal
-   frame counts, waveform max-abs ≤ 1e-3 (catches TF32).
+   frame counts, waveform max-abs ≤ 1e-3 (catches TF32);
+6. training at full width (``IrisConfig()`` plus full-width MPD/MSD): a
+   32-utterance synthetic corpus; its mel cache built on the card through
+   the log-mel kernel (one launch a clip) and held against the plain
+   version (max-abs ≤ 2e-3); one epoch of each stage through the port's
+   ``TrainLoop`` at batch 16 (duration; VAE with the frozen encoder and the
+   annealed KL weight; PostNet with the frozen encoder and VAE; GAN on 16
+   segments of 8192 samples); 20 steps on one fixed batch per stage, whose
+   loss must drop (step time, peak memory, first and last loss printed); a
+   bit-exact checkpoint round trip; ``TTSPipeline.from_checkpoints`` and one
+   synthesized sentence; one step of each stage's loss at a small width on
+   the card and on the CPU, losses and gradients held together (≤ 1e-4 of
+   the largest |g|).
 
-Phases 3 and 4 are the main path: the kernels' launch counts are zeroed
-just before them and read just after, and a kernel of the path that was
-not launched fails the run. The last three lines are the card's name and
-power limit, a ``{"kernels": [...]}`` JSON line, and
-``{"ok": true, "device": {...}}``. Any failed phase exits non-zero; so
-does a host without a CUDA device.
+Two paths drive the kernel: synthesis (phases 3 and 4) and training (phase
+6). Each path's launch counts are zeroed just before it and read just
+after, and a kernel of the path that was not launched fails the run. The
+last three lines are the card's name and power limit, a
+``{"kernels": [...]}`` JSON line, and ``{"ok": true, "device": {...}}``.
+Any failed phase exits non-zero; so does a host without a CUDA device.
 """
 
 from __future__ import annotations
@@ -36,7 +48,10 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from dataclasses import replace
+from pathlib import Path
 
 import torch
 
@@ -53,6 +68,10 @@ BATCH = [
     "Short one.",
 ]
 SHORT = "Hello world."
+TRAIN_SENTENCE = "The old gardener found a basket of apples near the station."
+# The loss each stage's fixed-batch check follows.
+STAGE_LOSS = {"duration": "duration_loss", "vae": "total",
+              "postnet": "postnet_l1", "gan": "gen_mel_l1"}
 
 
 def check(cond: bool, what: str) -> None:
@@ -171,6 +190,280 @@ def log_mel_library(audio, cfg, window, fb_t):
     mag = torch.sqrt(torch.view_as_real(spec).square().sum(-1) + 1e-12)
     mel = fb_t @ mag
     return torch.log(torch.clamp(mel, min=cfg.log_clip_min)).transpose(-1, -2)
+
+
+def _small_stage_grads(device, cfg):
+    """Loss and gradients of each stage's loss at a small width, dropout
+    off and the VAE at its posterior mean, for one seeded batch on
+    ``device``: {name: (loss, {param: grad})}."""
+    import numpy as np
+    import torch.nn as nn
+
+    from iris_tts_tpu_torch.models.discriminators import (
+        HiFiGANDiscriminators,
+    )
+    from iris_tts_tpu_torch.models.encoder import (
+        DurationPredictor,
+        PhonemeEncoder,
+    )
+    from iris_tts_tpu_torch.models.hifigan import HiFiGANGenerator
+    from iris_tts_tpu_torch.models.layers import init_params
+    from iris_tts_tpu_torch.models.postnet import PostNet
+    from iris_tts_tpu_torch.models.vae import TextConditionedVAE
+    from iris_tts_tpu_torch.train.gan import disc_loss, frozen_params, gen_loss
+    from iris_tts_tpu_torch.train.steps import (
+        duration_loss,
+        postnet_stage_loss,
+        vae_stage_loss,
+    )
+
+    def make(module, seed):
+        init_params(module, torch.Generator().manual_seed(seed))
+        return module.to(device)
+
+    rng = np.random.default_rng(0)
+    b, p, t = 4, 12, 64
+    mask = (np.arange(p)[None] < rng.integers(6, p + 1, (b, 1)))
+    batch = {k: torch.from_numpy(v).to(device) for k, v in {
+        "phoneme_ids": (rng.integers(2, cfg.encoder.vocab_size, (b, p))
+                        * mask).astype(np.int32),
+        "durations": (rng.integers(1, 5, (b, p)) * mask).astype(np.float32),
+        "phoneme_mask": mask.astype(np.float32),
+        "mel": rng.standard_normal((b, t, 80)).astype(np.float32),
+        "audio": (0.3 * rng.standard_normal((b, 32 * 256))
+                  ).astype(np.float32),
+    }.items()}
+    gan_batch = {"mel": batch["mel"][:, :32], "audio": batch["audio"]}
+    enc = make(PhonemeEncoder(cfg.encoder), 1)
+    frozen = nn.ModuleDict({"encoder": enc,
+                            "vae": make(TextConditionedVAE(cfg.vae), 2)})
+    for q in frozen.parameters():
+        q.requires_grad_(False)
+    gen = make(HiFiGANGenerator(cfg.hifigan), 3)
+    disc = make(HiFiGANDiscriminators(width=0.125), 4)
+    out = {}
+    cases = [
+        ("duration", make(nn.ModuleDict({
+            "encoder": PhonemeEncoder(cfg.encoder),
+            "duration": DurationPredictor(cfg.encoder.embed_dim,
+                                          cfg.duration)}), 5),
+         lambda m: duration_loss(m, batch, cfg, deterministic=True)),
+        ("vae", make(TextConditionedVAE(cfg.vae), 6),
+         lambda m: vae_stage_loss(m, frozen, batch, 0.01, cfg,
+                                  deterministic=True)),
+        ("postnet", make(PostNet(cfg.postnet), 7),
+         lambda m: postnet_stage_loss(m, frozen, batch, deterministic=True)),
+        ("gan_disc", disc, lambda m: disc_loss(m, gen, gan_batch)),
+    ]
+    for name, module, loss_fn in cases:
+        loss, _ = loss_fn(module)
+        loss.backward()
+        out[name] = (float(loss.detach()), {k: q.grad.detach().cpu().double()
+                                   for k, q in module.named_parameters()
+                                   if q.grad is not None})
+        module.zero_grad(set_to_none=True)
+    with frozen_params(disc):
+        loss, _ = gen_loss(gen, disc, gan_batch, cfg)
+        loss.backward()
+    out["gan_gen"] = (float(loss.detach()), {k: q.grad.detach().cpu().double()
+                                    for k, q in gen.named_parameters()})
+    return out
+
+
+def phase6_training(dev, card: str) -> int:
+    """Training at full width (see the module docstring). Returns the
+    log-mel kernel's launches on this path."""
+    import numpy as np
+
+    from iris_tts_tpu_torch import config as C
+    from iris_tts_tpu_torch.data.audio_io import load_audio
+    from iris_tts_tpu_torch.data.ljspeech import LJSpeechVAEDataset
+    from iris_tts_tpu_torch.data.synthetic_speech import (
+        CorpusSpec,
+        generate_corpus,
+    )
+    from iris_tts_tpu_torch.models.pipeline import TTSPipeline
+    from iris_tts_tpu_torch.ops import mel_cuda
+    from iris_tts_tpu_torch.ops.stft import log_mel_spectrogram_plain
+    from iris_tts_tpu_torch.train import stages
+    from iris_tts_tpu_torch.train.checkpoint import CheckpointManager
+
+    mel_cuda.log_mel_cuda.launches = 0
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
+    root = Path(tmp.name)
+    try:
+        # 1. corpus
+        t0 = time.perf_counter()
+        corpus, aligned = generate_corpus(
+            root / "corpus", CorpusSpec(n_utterances=32, seed=3),
+            progress_every=0)
+        n_wavs = len(list((corpus / "wavs").glob("*.wav")))
+        check(n_wavs == 32, f"32 utterances generated ({n_wavs})")
+        print(f"phase 6 corpus: {n_wavs} utterances in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        # 2. mel cache through the kernel, held against the plain version
+        cache = root / "cache"
+        audio_cfg = C.AudioConfig()
+        sets = [LJSpeechVAEDataset(corpus, aligned, split=split,
+                                   cache_dir=cache, audio=audio_cfg,
+                                   device=dev)
+                for split in ("train", "val")]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_clips = sum(ds.precompute_mels() for ds in sets)
+        torch.cuda.synchronize()
+        cache_s = time.perf_counter() - t0
+        launches = mel_cuda.log_mel_cuda.launches
+        check(n_clips == 32 and launches == n_clips,
+              f"one kernel launch per cached clip ({launches}, {n_clips})")
+        worst = 0.0
+        for ds in sets:
+            for sid in ds.sample_ids:
+                cached = np.load(ds._mel_path(sid))
+                audio = load_audio(corpus / "wavs" / f"{sid}.wav")
+                want = log_mel_spectrogram_plain(
+                    torch.from_numpy(audio).to(dev), audio_cfg)
+                check(bool(np.isfinite(cached).all()), f"finite mel {sid}")
+                worst = max(worst, max_abs(cached, want))
+        check(worst <= 2e-3, f"cached mel vs plain max-abs {worst} <= 2e-3")
+        print(f"phase 6 mel cache: {n_clips} clips through the kernel "
+              f"({launches} launches) in {cache_s:.3f} s, "
+              f"{1e3 * cache_s / n_clips:.3f} ms a clip (host wall: wav "
+              f"read, pad, launch, copy back, np.save); max-abs vs plain "
+              f"{worst:.3e} ({card})", flush=True)
+
+        # 3-4. the four stages, then 20 steps on one fixed batch each
+        cfg = C.IrisConfig()
+        cfg = replace(cfg, train=replace(cfg.train, batch_size=16,
+                                         num_epochs=1, warmup_epochs=0))
+        out = root / "run"
+        kw = dict(cache_dir=cache, device=dev)
+        stage_fns = [
+            ("duration", stages.duration_stage, {}),
+            ("vae", stages.vae_stage, {}),
+            ("postnet", stages.postnet_stage, {}),
+            ("gan", stages.gan_stage, dict(segment_frames=32)),
+        ]
+        states = {}
+        for name, build, extra in stage_fns:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loop = build(cfg, corpus, aligned, out, **kw, **extra)
+            state = loop.run()
+            torch.cuda.synchronize()
+            epoch_s = time.perf_counter() - t0
+            epoch_steps = state.step
+            check(epoch_steps >= 1 and state.epoch == 1,
+                  f"{name}: one epoch ran ({epoch_steps} steps)")
+            check(all(math.isfinite(v) for v in loop.history[0].values()),
+                  f"{name}: finite epoch metrics {loop.history[0]}")
+            batch = loop.place_batch(next(iter(loop.batcher.epoch(0))))
+            extras = loop.epoch_extras(0) if loop.epoch_extras else ()
+            losses, times = [], []
+            for _ in range(20):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                state, m = loop.train_step(state, batch, *extras)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+                losses.append({k: float(v) for k, v in m.items()})
+            key = STAGE_LOSS[name]
+            check(all(math.isfinite(v) for l in losses for v in l.values()),
+                  f"{name}: finite losses over 20 steps")
+            first, last = losses[0][key], losses[-1][key]
+            check(last < first, f"{name}: {key} drops on a fixed batch "
+                                f"({first} -> {last})")
+            peak_mb = torch.cuda.max_memory_allocated() / 2**20
+            n_params = sum(q.numel() for q in state.params.parameters())
+            shape = tuple(batch["mel" if "mel" in batch
+                                else "phoneme_ids"].shape)
+            print(f"phase 6 stage {name}: {n_params / 1e6:.2f} M trained "
+                  f"params; epoch of {epoch_steps} steps in {epoch_s:.2f} s "
+                  f"(build, mel cache reads, checkpoint); fixed batch "
+                  f"{shape}: median step {statistics.median(times[3:]):.2f} ms "
+                  f"(steps 4-20), peak memory {peak_mb:.1f} MiB, {key} "
+                  f"{first:.5f} -> {last:.5f} ({card})", flush=True)
+            states[name] = state
+            if name == "duration":
+                duration_step, duration_batch = loop.train_step, batch
+
+        # 5. checkpoint round trip on the card
+        state = states["duration"]
+        before = {k: v.clone() for k, v in
+                  state.params.state_dict().items()}
+        opt_before = [{k: torch.as_tensor(v).clone() for k, v in st.items()}
+                      for st in state.optimizer.state_dict()["state"].values()]
+        rng_before = state.generator.get_state()
+        ckpt = CheckpointManager(root / "roundtrip")
+        ckpt.save(state.step, state)
+        step_before = state.step
+        state, _ = duration_step(state, duration_batch)
+        check(state.step == step_before + 1, "a step after the save")
+        ckpt.restore(state)
+        check(state.step == step_before, "restored step")
+        check(all(torch.equal(v, state.params.state_dict()[k])
+                  for k, v in before.items()), "restored params bit-exact")
+        opt_after = [{k: torch.as_tensor(v) for k, v in st.items()}
+                     for st in state.optimizer.state_dict()["state"].values()]
+        check(all(torch.equal(a[k], b[k]) for a, b in
+                  zip(opt_before, opt_after) for k in a),
+              "restored optimizer state bit-exact")
+        check(torch.equal(rng_before, state.generator.get_state()),
+              "restored generator state bit-exact")
+        check(next(state.params.parameters()).device.type == dev.type,
+              "restored onto the card")
+        print(f"phase 6 checkpoint round trip on the card: params, "
+              f"optimizer, generator state bit-exact", flush=True)
+
+        # 6. assemble the trained stages and synthesize
+        pipe = TTSPipeline.from_checkpoints(
+            out / "encoder" / "checkpoints", out / "vae" / "checkpoints",
+            out / "postnet" / "checkpoints",
+            out / "hifigan_gan" / "checkpoints",
+            vocab_path=cache / "phoneme_vocab.json", device=dev)
+        audio = pipe.synthesize(TRAIN_SENTENCE, seed=0)
+        hop = pipe.config.hifigan.total_upsample
+        check(len(audio) > 0 and len(audio) % hop == 0,
+              "trained pipeline audio length")
+        check(bool(np.isfinite(audio).all()), "trained pipeline audio finite")
+        check(float(np.abs(audio).max()) > 0.0, "trained audio not silent")
+        print(f"phase 6 from_checkpoints: synthesized {len(audio)} samples "
+              f"({len(audio) // hop} frames), rms "
+              f"{float(np.sqrt(np.mean(audio ** 2))):.3e}", flush=True)
+        train_launches = mel_cuda.log_mel_cuda.launches
+        check(train_launches >= n_clips,
+              "the training path launched the log-mel kernel")
+
+        # 7. card vs CPU, one step of each stage's loss at a small width
+        small = C.IrisConfig(
+            encoder=C.EncoderConfig(embed_dim=32, num_blocks=2, num_heads=2),
+            duration=C.DurationConfig(hidden_dim=16, num_layers=2),
+            vae=C.VAEConfig(cond_dim=32, model_channels=16, latent_dim=4,
+                            num_wavenet_blocks=2, decoder_blocks=1,
+                            flow_layers=2, flow_hidden=8),
+            postnet=C.PostNetConfig(num_layers=3, channels=8),
+            hifigan=C.HiFiGANConfig(upsample_initial_channel=32,
+                                    resblock_kernel_sizes=(3, 7),
+                                    resblock_dilations=((1, 3), (1, 3))))
+        on_card = _small_stage_grads(dev, small)
+        on_cpu = _small_stage_grads(torch.device("cpu"), small)
+        for name, (loss_c, grads_c) in on_cpu.items():
+            loss_g, grads_g = on_card[name]
+            check(set(grads_g) == set(grads_c), f"{name}: same grads")
+            scale = max(float(g.abs().max()) for g in grads_c.values())
+            err = max(float((grads_g[k] - g).abs().max())
+                      for k, g in grads_c.items())
+            rel_loss = abs(loss_g - loss_c) / max(abs(loss_c), 1e-30)
+            check(scale > 0 and err <= 1e-4 * scale,
+                  f"{name}: card vs CPU grads {err} <= 1e-4 x {scale}")
+            check(rel_loss <= 1e-4, f"{name}: card vs CPU loss {rel_loss}")
+            print(f"phase 6 card vs CPU {name}: loss {loss_c:.6f} "
+                  f"(relative {rel_loss:.2e}), grads max-abs {err:.3e} = "
+                  f"{err / scale:.2e} of max |g|", flush=True)
+        return train_launches
+    finally:
+        tmp.cleanup()
 
 
 def main() -> int:
@@ -335,6 +628,9 @@ def main() -> int:
           f"{wave_err / max(peak, 1e-30):.3e}), mel max-abs {mel_err:.3e}",
           flush=True)
 
+    # -- 6. training at full width (the training path) ----------------------
+    train_launches = phase6_training(dev, card)
+
     # -- where the time goes: one fused synthesize under the profiler --------
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -369,7 +665,9 @@ def main() -> int:
         "route": "cuda",
         "source": "iris_tts_tpu_torch/ops/csrc/log_mel.cu",
         "replaces": f"{jax_pkg}/ops/mel_pallas.py:110",
-        "launches": launches,
+        "launches": launches + train_launches,
+        "launches_by_path": {"synthesis": launches,
+                             "training": train_launches},
         "max_abs_err": worst,
         "ms": k_ms,
         "plain_ms": p_ms,

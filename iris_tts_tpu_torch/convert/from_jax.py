@@ -3,9 +3,12 @@
 :func:`state_dict_from_jax` takes the JAX ``TTSPipeline.params`` tree with
 numpy leaves (``encoder``, ``duration``, ``vae``, ``postnet`` with
 ``params`` and ``batch_stats``, ``hifigan``) and returns the state dict of
-:class:`~iris_tts_tpu_torch.models.pipeline.SynthesisModel`. It takes numpy
-only: turning JAX arrays into numpy (``jax.tree_util.tree_map(np.asarray,
-params)``) is the caller's business, so this package never imports JAX.
+:class:`~iris_tts_tpu_torch.models.pipeline.SynthesisModel`;
+:func:`module_state_from_jax` does the same for one module's tree (e.g. the
+discriminators), and :func:`load_train_state_from_jax` fills a port train
+state from the pieces of a JAX one. They take numpy only: turning JAX
+arrays into numpy (``jax.tree_util.tree_map(np.asarray, params)``) is the
+caller's business, so this package never imports JAX.
 
 The port names its submodules after the flax modules, so a flax path maps
 to a state-dict key by joining with dots; only the leaf and its layout
@@ -18,6 +21,8 @@ flax leaf              where                            torch
 ``kernel`` [K,Ci,Co]   Conv1d                           ``weight`` [Co,Ci,K]
 ``kernel`` [K,Ci,Co]   HiFiGAN ``ups_i`` (transposed)   ``weight`` [Ci,Co,K],
                                                         no flip
+``kernel`` [kh,kw,Ci,Co]  MPD Conv2d                    ``weight``
+                                                        [Co,Ci,kh,kw]
 ``kernel`` [E,H,D]     attention query/key/value        [H·D, E]
 ``kernel`` [H,D,E]     attention out                    [E, H·D]
 ``bias`` [H, D]        attention query/key/value        [H·D]
@@ -30,7 +35,7 @@ flax leaf              where                            torch
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,6 +72,8 @@ def _convert_leaf(path: Tuple[str, ...], value: np.ndarray
             a = a.transpose(1, 2, 0)
         elif a.ndim == 3:
             a = a.transpose(2, 1, 0)
+        elif a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)
         else:
             raise ValueError(f"unexpected kernel {'/'.join(path)} {a.shape}")
     elif leaf == "bias":
@@ -86,6 +93,39 @@ def _convert_leaf(path: Tuple[str, ...], value: np.ndarray
     return ".".join(mod + [name]), np.ascontiguousarray(a)
 
 
+def _convert_trees(trees) -> Dict[str, torch.Tensor]:
+    """[(path prefix, numpy tree)] → torch state dict; raises on a leaf it
+    cannot place or on two leaves mapping to one key. BatchNorm's
+    ``num_batches_tracked`` has no flax counterpart and is set to 0."""
+    out: Dict[str, torch.Tensor] = {}
+    for prefix, tree in trees:
+        for path, value in _leaves(tree, prefix):
+            key, arr = _convert_leaf(path, value)
+            if key in out:
+                raise ValueError(f"two JAX leaves map to {key}")
+            out[key] = torch.from_numpy(arr.astype(np.float32))
+    for key in [k for k in out if k.endswith(".running_var")]:
+        out[key[: -len("running_var")] + "num_batches_tracked"] = (
+            torch.zeros((), dtype=torch.long))
+    return out
+
+
+def _check_covers(out: Dict[str, torch.Tensor], module: nn.Module) -> None:
+    want = module.state_dict()
+    missing = sorted(set(want) - set(out))
+    unknown = sorted(set(out) - set(want))
+    if missing or unknown:
+        raise ValueError(
+            f"JAX params do not cover the torch module: missing "
+            f"{missing[:8]}{'...' if len(missing) > 8 else ''}, unknown "
+            f"{unknown[:8]}{'...' if len(unknown) > 8 else ''}"
+        )
+    bad = [(k, tuple(out[k].shape), tuple(v.shape))
+           for k, v in want.items() if out[k].shape != v.shape]
+    if bad:
+        raise ValueError(f"shape mismatch (key, jax, torch): {bad[:8]}")
+
+
 def state_dict_from_jax(
     params: Dict[str, Any], module: Optional[nn.Module] = None
 ) -> Dict[str, torch.Tensor]:
@@ -93,40 +133,60 @@ def state_dict_from_jax(
 
     Raises on any leaf it cannot place. With ``module`` given it also
     raises on any key of ``module.state_dict()`` left unset, any key the
-    module does not have, and any shape mismatch. BatchNorm's
-    ``num_batches_tracked`` has no flax counterpart and is set to 0.
+    module does not have, and any shape mismatch.
     """
-    out: Dict[str, torch.Tensor] = {}
+    trees = []
     for top, sub in params.items():
         if top == "postnet":
-            trees = [(("postnet",), sub["params"]),
-                     (("postnet",), sub["batch_stats"])]
+            trees += [(("postnet",), sub["params"]),
+                      (("postnet",), sub["batch_stats"])]
             extra = set(sub) - {"params", "batch_stats"}
             if extra:
                 raise ValueError(f"unconsumed JAX postnet entries {extra}")
         else:
-            trees = [((top,), sub)]
-        for prefix, tree in trees:
-            for path, value in _leaves(tree, prefix):
-                key, arr = _convert_leaf(path, value)
-                if key in out:
-                    raise ValueError(f"two JAX leaves map to {key}")
-                out[key] = torch.from_numpy(arr.astype(np.float32))
-    for key in [k for k in out if k.endswith(".running_var")]:
-        out[key[: -len("running_var")] + "num_batches_tracked"] = (
-            torch.zeros((), dtype=torch.long))
+            trees.append(((top,), sub))
+    out = _convert_trees(trees)
     if module is not None:
-        want = module.state_dict()
-        missing = sorted(set(want) - set(out))
-        unknown = sorted(set(out) - set(want))
-        if missing or unknown:
-            raise ValueError(
-                f"JAX params do not cover the torch module: missing "
-                f"{missing[:8]}{'...' if len(missing) > 8 else ''}, unknown "
-                f"{unknown[:8]}{'...' if len(unknown) > 8 else ''}"
-            )
-        bad = [(k, tuple(out[k].shape), tuple(v.shape))
-               for k, v in want.items() if out[k].shape != v.shape]
-        if bad:
-            raise ValueError(f"shape mismatch (key, jax, torch): {bad[:8]}")
+        _check_covers(out, module)
     return out
+
+
+def module_state_from_jax(
+    params: Any, batch_stats: Any = None, module: Optional[nn.Module] = None
+) -> Dict[str, torch.Tensor]:
+    """One flax module's ``params`` tree (and ``batch_stats``), numpy
+    leaves → the state dict of its port module, e.g. the discriminators'
+    or a train stage's. Checks against ``module`` as
+    :func:`state_dict_from_jax` does."""
+    trees = [((), params)]
+    if batch_stats is not None:
+        trees.append(((), batch_stats))
+    out = _convert_trees(trees)
+    if module is not None:
+        _check_covers(out, module)
+    return out
+
+
+def load_train_state_from_jax(
+    state,
+    params: Any,
+    batch_stats: Any = None,
+    frozen: Optional[Mapping[str, Any]] = None,
+    step: int = 0,
+    epoch: int = 0,
+):
+    """Fill a port ``TrainState`` (built for the same stage and config) from
+    the numpy pieces of a JAX one: ``params`` (and the PostNet's
+    ``batch_stats``) into ``state.params``, each ``frozen`` companion into
+    ``state.frozen[name]``, and the step and epoch counters. The optimizer
+    state and the generator stay as ``state`` has them (fresh for a new
+    state): optax and torch share no format for them."""
+    state.params.load_state_dict(
+        module_state_from_jax(params, batch_stats, state.params),
+        strict=True)
+    for name, tree in (frozen or {}).items():
+        target = state.frozen[name]
+        target.load_state_dict(module_state_from_jax(tree, module=target),
+                               strict=True)
+    state.step, state.epoch = int(step), int(epoch)
+    return state

@@ -1,0 +1,21 @@
+"""Host-side data pipeline: audio IO, alignments, datasets, batching."""
+
+from iris_tts_tpu_torch.data.audio_io import (
+    join_wave_chunks,
+    load_audio,
+    read_wav,
+    resample,
+    to_mono,
+    wav_bytes,
+    write_wav,
+)
+
+__all__ = [
+    "join_wave_chunks",
+    "load_audio",
+    "read_wav",
+    "resample",
+    "to_mono",
+    "wav_bytes",
+    "write_wav",
+]

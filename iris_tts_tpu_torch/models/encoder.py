@@ -3,8 +3,11 @@
 Counterpart of the JAX package's ``models/encoder.py``: learned positional
 embeddings, post-LN transformer blocks (LayerNorm eps 1e-6, ReLU FFN), and
 a softplus conv duration head. Submodule names follow the flax parameter
-tree (``block_0.attention.query``, ``norm_1``, ...). Dropout is absent:
-this package serves inference only.
+tree (``block_0.attention.query``, ``norm_1``, ...). With
+``deterministic=False`` (training) dropout acts at the JAX sites: attention
+weights, attention output, FFN hidden and output, the embedding sum, and
+after each duration-head LayerNorm; its masks come from the ``generator``
+passed in (``layers.dropout``).
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from iris_tts_tpu_torch.config import DurationConfig, EncoderConfig
-from iris_tts_tpu_torch.models.layers import Conv1d, Dense
+from iris_tts_tpu_torch.models.layers import Conv1d, Dense, dropout
 
 _LN_EPS = 1e-6
 
@@ -36,8 +39,12 @@ class MultiHeadAttention(nn.Module):
         self.out = Dense(embed_dim, embed_dim)
 
     def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x [B, P, E]; mask [B, 1, P, P] bool (True = attend)."""
+                mask: Optional[torch.Tensor] = None,
+                dropout_rate: float = 0.0, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x [B, P, E]; mask [B, 1, P, P] bool (True = attend). Dropout on
+        the attention weights shares one mask over batch and heads, as
+        flax's ``broadcast_dropout``."""
         b, p, e = x.shape
         h = self.num_heads
         d = e // h
@@ -51,6 +58,8 @@ class MultiHeadAttention(nn.Module):
             # survive the output padding mask (NaN·0 = NaN).
             logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
         weights = torch.softmax(logits, dim=-1)
+        weights = dropout(weights, dropout_rate, deterministic, generator,
+                          broadcast_dims=(0, 1))
         y = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(b, p, e)
         return self.out(y)
 
@@ -59,8 +68,10 @@ class TransformerBlock(nn.Module):
     """Post-LN encoder block: self-attention + residual + LN, then ReLU FFN
     + residual + LN."""
 
-    def __init__(self, embed_dim: int, num_heads: int, ffn_dim: int):
+    def __init__(self, embed_dim: int, num_heads: int, ffn_dim: int,
+                 dropout: float = 0.1):
         super().__init__()
+        self.dropout = dropout
         self.attention = MultiHeadAttention(embed_dim, num_heads)
         self.attn_norm = nn.LayerNorm(embed_dim, eps=_LN_EPS)
         self.ffn_in = Dense(embed_dim, ffn_dim)
@@ -68,9 +79,14 @@ class TransformerBlock(nn.Module):
         self.ffn_norm = nn.LayerNorm(embed_dim, eps=_LN_EPS)
 
     def forward(self, x: torch.Tensor,
-                attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.attn_norm(x + self.attention(x, attn_mask))
-        h = self.ffn_out(F.relu(self.ffn_in(x)))
+                attn_mask: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        p, det, g = self.dropout, deterministic, generator
+        attn = self.attention(x, attn_mask, p, det, g)
+        x = self.attn_norm(x + dropout(attn, p, det, g))
+        h = dropout(F.relu(self.ffn_in(x)), p, det, g)
+        h = dropout(self.ffn_out(h), p, det, g)
         return self.ffn_norm(x + h)
 
 
@@ -87,22 +103,28 @@ class PhonemeEncoder(nn.Module):
         self.num_blocks = config.num_blocks
         for i in range(config.num_blocks):
             self.add_module(f"block_{i}", TransformerBlock(
-                config.embed_dim, config.num_heads, config.ffn_hidden))
+                config.embed_dim, config.num_heads, config.ffn_hidden,
+                config.dropout))
         self.output_norm = nn.LayerNorm(config.embed_dim, eps=_LN_EPS)
 
     def forward(self, phoneme_ids: torch.Tensor,
-                padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """phoneme_ids [B, P] int; padding_mask [B, P] bool, True = valid."""
+                padding_mask: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """phoneme_ids [B, P] int; padding_mask [B, P] bool/float, True (1)
+        = valid; ``deterministic=False`` turns dropout on."""
         seq_len = phoneme_ids.shape[1]
         positions = torch.arange(seq_len, device=phoneme_ids.device)
         x = (self.phoneme_embedding(phoneme_ids)
              + self.position_embedding(positions)[None])
+        x = dropout(x, self.config.dropout, deterministic, generator)
         attn_mask = None
         if padding_mask is not None:
             valid = padding_mask.bool()
             attn_mask = valid[:, None, :, None] & valid[:, None, None, :]
         for i in range(self.num_blocks):
-            x = getattr(self, f"block_{i}")(x, attn_mask)
+            x = getattr(self, f"block_{i}")(x, attn_mask, deterministic,
+                                            generator)
         x = self.output_norm(x)
         if padding_mask is not None:
             x = x * padding_mask.to(x.dtype)[..., None]
@@ -116,6 +138,7 @@ class DurationPredictor(nn.Module):
     def __init__(self, in_dim: int, config: DurationConfig = DurationConfig()):
         super().__init__()
         self.num_layers = config.num_layers
+        self.dropout = config.dropout
         c = in_dim
         for i in range(config.num_layers):
             self.add_module(f"conv_{i}", Conv1d(c, config.hidden_dim,
@@ -125,10 +148,13 @@ class DurationPredictor(nn.Module):
             c = config.hidden_dim
         self.output_proj = Conv1d(c, 1, 1)
 
-    def forward(self, encoder_output: torch.Tensor) -> torch.Tensor:
+    def forward(self, encoder_output: torch.Tensor,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = encoder_output
         for i in range(self.num_layers):
             x = getattr(self, f"conv_{i}")(x.transpose(1, 2)).transpose(1, 2)
             x = getattr(self, f"norm_{i}")(F.relu(x))
+            x = dropout(x, self.dropout, deterministic, generator)
         x = self.output_proj(x.transpose(1, 2))  # [B, 1, P]
         return F.softplus(x[:, 0])

@@ -15,7 +15,7 @@ JAX modules name (zero-initialised heads, HiFiGAN's ``normal(0.01)``).
 from __future__ import annotations
 
 import math
-from typing import Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -32,6 +32,25 @@ def lecun_normal_(w: torch.Tensor, fan_in: int, generator) -> None:
     std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
     nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
                           generator=generator)
+
+
+def dropout(x: torch.Tensor, rate: float, deterministic: bool,
+            generator: Optional[torch.Generator],
+            broadcast_dims: Sequence[int] = ()) -> torch.Tensor:
+    """``flax.linen.Dropout``: keep each element with probability
+    ``1 - rate`` and scale it by ``1 / (1 - rate)``; identity when
+    ``deterministic`` or ``rate == 0``. The mask is drawn from
+    ``generator`` (on ``x``'s device), so a train state that owns the
+    generator replays its masks exactly on resume; ``broadcast_dims``
+    share one mask along those axes."""
+    if deterministic or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    shape = [1 if i in broadcast_dims else n for i, n in enumerate(x.shape)]
+    keep = torch.rand(shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
 
 
 def same_padding(t: int, k: int, stride: int, dilation: int
@@ -109,6 +128,30 @@ class ConvTranspose1d(nn.Module):
         return conv_transpose1d(x, self.weight, self.bias, stride=self.stride)
 
 
+class Conv2d(nn.Module):
+    """2-D conv on ``[B, C, H, W]`` with explicit ((top, bottom), (left,
+    right)) padding; weight ``[C_out, C_in, kh, kw]``, flax lecun init."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: Tuple[int, int], stride=(1, 1),
+                 padding=((0, 0), (0, 0))):
+        super().__init__()
+        self.stride = tuple(stride)
+        (pt, pb), (pl, pr) = padding
+        self.pad = (pl, pr, pt, pb)  # F.pad order: last dim first
+        self.weight = nn.Parameter(
+            torch.empty(out_channels, in_channels, *kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    def reset_parameters(self, generator) -> None:
+        lecun_normal_(self.weight, self.weight[0].numel(), generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(F.pad(x, self.pad), self.weight, self.bias,
+                        stride=self.stride)
+
+
 class Dense(nn.Linear):
     """``flax.linen.Dense`` on the last axis; ``zero_init`` for the heads
     the JAX modules initialise to zero."""
@@ -137,7 +180,7 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
     """Flax-matching random init of every parameter of ``model``, drawn
     from ``generator`` in module order."""
     for m in model.modules():
-        if isinstance(m, (Conv1d, ConvTranspose1d, Dense)):
+        if isinstance(m, (Conv1d, Conv2d, ConvTranspose1d, Dense)):
             m.reset_parameters(generator)
         elif isinstance(m, nn.Embedding):
             nn.init.normal_(m.weight, 0.0, 1.0 / math.sqrt(m.embedding_dim),

@@ -13,6 +13,10 @@ compressed beyond ``fused_overflow_tolerance`` are redone on the two-stage
 path. Batches take the two-stage path, whose frame bucket is measured from
 the predicted durations.
 
+Constructors: seeded random weights (:meth:`TTSPipeline.initialize`), the
+JAX package's params (:meth:`TTSPipeline.from_jax_params`), or the four
+training stages' checkpoints (:meth:`TTSPipeline.from_checkpoints`).
+
 Not in this package yet: the packed single-transfer wire format (a TPU
 transport), meshes, streaming and sharded vocoding, the long-text and
 file entry points, and ``save``/``load`` of its own format.
@@ -192,6 +196,67 @@ class TTSPipeline:
         model.load_state_dict(state_dict_from_jax(params, model), strict=True)
         return cls._assemble(config, model, vocab, text_processor, device,
                              use_postnet, seed)
+
+    @classmethod
+    def from_checkpoints(
+        cls,
+        encoder_checkpoint: Union[str, Path],
+        vae_checkpoint: Union[str, Path],
+        postnet_checkpoint: Optional[Union[str, Path]] = None,
+        hifigan_gan_checkpoint: Optional[Union[str, Path]] = None,
+        config: Optional[IrisConfig] = None,
+        vocab: Optional[PhonemeVocab] = None,
+        vocab_path: Optional[Union[str, Path]] = None,
+        lexicon_path: Optional[Union[str, Path]] = None,
+        device: DeviceLike = None,
+        seed: int = 1337,
+    ) -> "TTSPipeline":
+        """Assemble the inference pipeline from the training stages' port
+        checkpoints (``train/stages.py`` layout), best state first.
+
+        ``config`` defaults to the one recorded beside the VAE checkpoints.
+        ``hifigan_gan_checkpoint`` is the GAN stage's directory; its EMA
+        generator deploys when the run tracked one. A missing PostNet
+        serves the VAE output directly; a missing GAN checkpoint keeps the
+        generator's seeded random weights. The vocab must be the one the
+        encoder trained with (``vocab_path``: the stage's
+        ``phoneme_vocab.json``)."""
+        from iris_tts_tpu_torch.train.checkpoint import CheckpointManager
+
+        vae_dir = Path(vae_checkpoint)
+        if config is None:
+            config = CheckpointManager(vae_dir).load_config()
+        if vocab is None:
+            vocab = (PhonemeVocab.load(vocab_path) if vocab_path
+                     else PhonemeVocab.default_arpabet())
+        if len(vocab) != config.encoder.vocab_size:
+            raise ValueError(
+                f"vocab size {len(vocab)} does not match the checkpointed "
+                f"encoder vocab_size {config.encoder.vocab_size}; pass the "
+                "vocab the model was trained with")
+        device = resolve_device(device)
+        config, vocab, text_processor = cls._prepare(
+            config, vocab, None, lexicon_path)
+        model = SynthesisModel(config)
+        init_params(model, seeded_generator(seed, "cpu"))
+        sd = model.state_dict()
+        # Only the params of each stage are read: the optimizer state of
+        # whatever schedule trained it plays no part in inference.
+        sd.update(CheckpointManager(encoder_checkpoint)
+                  .restore_best_params())
+        sd.update({f"vae.{k}": v for k, v in
+                   CheckpointManager(vae_dir).restore_best_params().items()})
+        if postnet_checkpoint is not None:
+            sd.update({f"postnet.{k}": v for k, v in CheckpointManager(
+                postnet_checkpoint).restore_best_params().items()})
+        if hifigan_gan_checkpoint is not None:
+            gen = CheckpointManager(hifigan_gan_checkpoint
+                                    ).restore_best_raw()["gen"]
+            gen_params = gen["ema_params"] or gen["params"]
+            sd.update({f"hifigan.{k}": v for k, v in gen_params.items()})
+        model.load_state_dict(sd, strict=True)
+        return cls._assemble(config, model, vocab, text_processor, device,
+                             postnet_checkpoint is not None, seed)
 
     @classmethod
     def _assemble(cls, config, model, vocab, text_processor, device,

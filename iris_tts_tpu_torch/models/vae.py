@@ -1,11 +1,11 @@
 """PortaSpeech-style text-conditioned VAE with a volume-preserving flow.
 
-Counterpart of the JAX package's ``models/vae.py``. Every submodule exists
-so the whole flax parameter tree loads, but only the inference path
+Counterpart of the JAX package's ``models/vae.py``: the training path
+(:meth:`TextConditionedVAE.forward`: posterior encode, reparameterised
+sample, flow, decode) and the inference path
 (:meth:`TextConditionedVAE.generate`: inverse flow on a prior sample, then
-decode) runs in this package. Internally the tensors are channels-first
-``[B, C, T]``; the public methods take and return the JAX package's
-time-major ``[B, T, C]``.
+decode). Internally the tensors are channels-first ``[B, C, T]``; the public
+methods take and return the JAX package's time-major ``[B, T, C]``.
 
 Flax ``nn.gelu`` is the tanh approximation, hence ``approximate="tanh"``
 throughout.
@@ -20,7 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from iris_tts_tpu_torch.config import VAEConfig
-from iris_tts_tpu_torch.models.layers import Conv1d, Dense
+from iris_tts_tpu_torch.models.layers import Conv1d, Dense, dropout
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -40,17 +40,21 @@ class FiLM(nn.Module):
 
 
 class WaveNetResBlock(nn.Module):
-    """x + res_proj(FiLM(gelu(dilated_conv(x)), cond))."""
+    """x + res_proj(dropout(FiLM(gelu(dilated_conv(x)), cond)))."""
 
     def __init__(self, channels: int, cond_dim: int, kernel_size: int,
-                 dilation: int):
+                 dilation: int, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.conv = Conv1d(channels, channels, kernel_size, dilation=dilation)
         self.film = FiLM(cond_dim, channels)
         self.res_proj = Conv1d(channels, channels, 1)
 
-    def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cond: torch.Tensor,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = self.film(_gelu(self.conv(x)), cond)
+        h = dropout(h, self.dropout, deterministic, generator)
         return x + self.res_proj(h)
 
 
@@ -132,8 +136,15 @@ class VolumePreservingFlow(nn.Module):
         return x
 
 
+def reparameterize(mean: torch.Tensor, logvar: torch.Tensor,
+                   eps: torch.Tensor) -> torch.Tensor:
+    """The posterior sample ``z = mean + exp(logvar / 2) · eps``."""
+    return mean + torch.exp(0.5 * logvar) * eps
+
+
 class TextConditionedVAE(nn.Module):
-    """Triple-conditioned VAE; ``generate`` is the inference path."""
+    """Triple-conditioned VAE: ``forward`` is the training path,
+    ``generate`` the inference path."""
 
     def __init__(self, config: VAEConfig = VAEConfig()):
         super().__init__()
@@ -142,7 +153,8 @@ class TextConditionedVAE(nn.Module):
         self.in_proj = Conv1d(cfg.n_mels, c, 1)
         for i in range(cfg.num_wavenet_blocks):
             self.add_module(f"enc_block_{i}", WaveNetResBlock(
-                c, cfg.cond_dim, k, dilation=2 ** (i % 4)))
+                c, cfg.cond_dim, k, dilation=2 ** (i % 4),
+                dropout=cfg.dropout))
         self.downsample = TemporalDownsample(c, c, cfg.down_stages, 5)
         self.down_cond_proj = Conv1d(cfg.cond_dim, c, 1)
         self.latent_mean_proj = Dense(c, cfg.latent_dim)
@@ -152,7 +164,7 @@ class TextConditionedVAE(nn.Module):
         self.latent_dec_proj = Dense(cfg.latent_dim, c)
         for i in range(cfg.decoder_blocks):
             self.add_module(f"dec_block_{i}", WaveNetResBlock(
-                c, c, k, dilation=2 ** (i % 4)))
+                c, c, k, dilation=2 ** (i % 4), dropout=cfg.dropout))
         self.upsample = TemporalUpsample(c, cfg.down_stages, 5)
         self.out_proj = Conv1d(c, cfg.n_mels, 1)
         self.residual_proj = Dense(c, cfg.cond_dim)
@@ -161,15 +173,70 @@ class TextConditionedVAE(nn.Module):
         """Frame-rate cond [B, cond, T] → latent-rate cond [B, C, T']."""
         return self.downsample(self.down_cond_proj(frame_cond_ct))
 
-    def decode(self, z_ct: torch.Tensor, lat_cond: torch.Tensor
+    def decode(self, z_ct: torch.Tensor, lat_cond: torch.Tensor,
+               deterministic: bool = True,
+               generator: Optional[torch.Generator] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Latent [B, latent, T'] → (mel [B, n_mels, T], residual
         [B, cond, T])."""
         d = self.latent_dec_proj.forward_ct(z_ct)
         for i in range(self.config.decoder_blocks):
-            d = getattr(self, f"dec_block_{i}")(d, lat_cond)
+            d = getattr(self, f"dec_block_{i}")(d, lat_cond, deterministic,
+                                                generator)
         d_up = self.upsample(d)
         return self.out_proj(d_up), self.residual_proj.forward_ct(d_up)
+
+    def forward(
+        self,
+        mel: torch.Tensor,
+        frame_cond: torch.Tensor,
+        deterministic: bool = True,
+        return_u: bool = False,
+        eps: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """Posterior encode + reconstruct (the training path).
+
+        Args:
+            mel: [B, T, n_mels] target mel (time-major).
+            frame_cond: [B, T, cond_dim] frame-aligned text conditioning.
+            deterministic: True → z is the posterior mean and dropout is
+                off; False → ``z = mean + exp(logvar/2)·eps`` with ``eps``
+                drawn from ``generator`` unless given ([B, T', latent]).
+            return_u: also return ``u = flow(z)``, the flow-prior image of
+                the sample (the ``flow_prior`` training objective).
+        Returns:
+            recon [B, T, n_mels], (mean, logvar) [B, T', latent], residual
+            [B, T, cond_dim] — plus ``u`` [B, T', latent] when ``return_u``.
+        """
+        cfg = self.config
+        h = self.in_proj(mel.transpose(1, 2))
+        for i in range(cfg.num_wavenet_blocks):
+            h = getattr(self, f"enc_block_{i}")(h, frame_cond.transpose(1, 2),
+                                                deterministic, generator)
+        lat_cond = self.latent_cond(frame_cond.transpose(1, 2))
+        lat_h = self.downsample(h)
+        mean = self.latent_mean_proj.forward_ct(lat_h)
+        logvar = self.latent_logvar_proj.forward_ct(lat_h)
+        if deterministic and eps is None:
+            z = mean
+        else:
+            if eps is None:
+                eps = torch.randn(mean.shape, generator=generator,
+                                  device=mean.device, dtype=mean.dtype)
+            else:
+                eps = eps.transpose(1, 2)
+            z = reparameterize(mean, logvar, eps)
+        u = self.vpflow(z, lat_cond)
+        # flow_prior decodes the posterior sample itself (the space
+        # generate() decodes); reference mode decodes flow(z).
+        z_dec = z if cfg.flow_prior else u
+        recon, residual = self.decode(z_dec, lat_cond, deterministic,
+                                      generator)
+        out = (recon.transpose(1, 2),
+               (mean.transpose(1, 2), logvar.transpose(1, 2)),
+               residual.transpose(1, 2))
+        return out + (u.transpose(1, 2),) if return_u else out
 
     def generate(
         self,

@@ -175,13 +175,26 @@ def log_mel_spectrogram_plain(audio: torch.Tensor,
 
 
 def log_mel_spectrogram(audio: torch.Tensor,
-                        cfg: AudioConfig = AudioConfig()) -> torch.Tensor:
+                        cfg: AudioConfig = AudioConfig(),
+                        impl: Optional[str] = None) -> torch.Tensor:
     """audio [..., N] → log-mel [..., T, n_mels] (f32, time-major).
 
-    A CUDA tensor goes through the hand-written kernel
+    ``impl=None``: a CUDA tensor goes through the hand-written kernel
     (:func:`~iris_tts_tpu_torch.ops.mel_cuda.log_mel_cuda`), which raises if
     it cannot build or launch; a CPU tensor goes through the plain version.
+
+    ``impl="xla"``: the port of the JAX package's ``impl="xla"`` path, a
+    dense windowed-DFT matmul plus elementwise math that autograd
+    differentiates. The GAN mel loss differentiates through the fake audio's
+    mel and uses it for that reason, as the JAX generator step does (its
+    kernel, like this port's, is forward-only). It shares its code with
+    :func:`log_mel_spectrogram_plain`; it is a path of its own, not a
+    fallback of the kernel.
     """
+    if impl == "xla":
+        return log_mel_spectrogram_plain(audio, cfg)
+    if impl is not None:
+        raise ValueError(f"unknown log-mel impl {impl!r}")
     from iris_tts_tpu_torch.ops.mel_cuda import log_mel_cuda
 
     return log_mel_cuda(audio, cfg)

@@ -1,7 +1,7 @@
 """Text → phoneme-ID frontend (host-side, feeding the synthesis batches).
 
-A copy of the JAX package's ``text/frontend.py`` with the rules-only G2P ladder: the
-neural G2P stage is not part of this package yet.
+A copy of the JAX package's ``text/frontend.py``, with the same G2P ladder
+and the same default: the neural G2P is on whenever its checkpoint exists.
 
 Public API parity with the reference (BASELINE.json north star):
 ``create_text_processor()`` and ``TextProcessor.normalize_text /
@@ -10,7 +10,9 @@ create_phoneme_mapping`` mirror reference src/iris/text.py:28-307.
 
 The implementation stack is: rule normalization (:mod:`normalize`) →
 lexicon lookup with first-pronunciation + stress stripping (:mod:`lexicon`)
-→ rule-based G2P (:mod:`g2p`) → character spell-out last resort — the same fallback
+→ neural G2P (:mod:`neural_g2p`, a transformer trained on the shipped
+CMUdict) → rule-based G2P fallback (:mod:`g2p`) → character spell-out last
+resort — the same fallback
 ladder as the reference (text.py:164-194), with pure-Python/first-party
 replacements for the pynini/nltk/g2p_en native dependencies (SURVEY.md §2.3).
 """
@@ -26,6 +28,7 @@ import numpy as np
 
 from iris_tts_tpu_torch.text.g2p import g2p, spell_out
 from iris_tts_tpu_torch.text.lexicon import Lexicon, strip_stress
+from iris_tts_tpu_torch.text.neural_g2p import NeuralG2P
 from iris_tts_tpu_torch.text.normalize import normalize_text as _normalize
 from iris_tts_tpu_torch.text.phonemes import PhonemeVocab
 
@@ -48,10 +51,20 @@ class TextProcessor:
         lexicon: Optional[Lexicon] = None,
         use_g2p: bool = True,
         spell_acronyms: bool = True,
+        neural_g2p=None,
     ):
         self.lexicon = lexicon or Lexicon()
         self.use_g2p = use_g2p
         self.spell_acronyms = spell_acronyms
+        # Lazy: constructing NeuralG2P loads nothing; the first OOV word
+        # pays the one-time checkpoint load (and rules still back it up if
+        # that fails). Pass neural_g2p=False to force rules only.
+        if neural_g2p is None or neural_g2p is True:
+            self.neural_g2p = NeuralG2P() if NeuralG2P.available() else None
+        elif neural_g2p is False:
+            self.neural_g2p = None
+        else:
+            self.neural_g2p = neural_g2p
 
     # -- normalization -------------------------------------------------------
 
@@ -75,6 +88,10 @@ class TextProcessor:
             return [strip_stress(p) for p in phones]
         bare = word_clean.replace("'", "")
         if self.use_g2p:
+            if self.neural_g2p is not None:
+                out = self.neural_g2p(bare)
+                if out:
+                    return out
             out = g2p(bare)
             if out:
                 return out
@@ -84,6 +101,26 @@ class TextProcessor:
 
     # -- sentence level ------------------------------------------------------
 
+    def _prefetch_oov(self, words: List[str]) -> None:
+        """Batch all out-of-lexicon words of a sentence into one neural-G2P
+        decode (its per-word results are memoized, so the per-word ladder
+        that follows hits the cache)."""
+        if not (self.use_g2p and self.neural_g2p is not None):
+            return
+        oov = []
+        seen = set()
+        for word in words:
+            w = _APOSTROPHE_RE.sub("'", word.lower()).strip("'")
+            if not w or w in seen:
+                continue
+            seen.add(w)
+            if self.lexicon.lookup(w) is None and (
+                "'" not in w or self.lexicon.lookup(w.replace("'", "")) is None
+            ):
+                oov.append(w.replace("'", ""))
+        if oov:
+            self.neural_g2p.predict_batch(oov)
+
     def text_to_phonemes(self, text: str, separator: str = " ") -> str:
         """Full sentence → space-joined phoneme string
         (reference: text.py:132-162)."""
@@ -91,6 +128,7 @@ class TextProcessor:
         words = [
             w for w in (_WORD_CLEAN_RE.sub("", t) for t in norm.split()) if w
         ]
+        self._prefetch_oov(words)
         phonemes: List[str] = []
         for word_clean in words:
             phonemes.extend(self.word_to_phonemes(word_clean))
@@ -157,20 +195,24 @@ def create_text_processor(
     use_nemo: bool = True,  # accepted for API parity; rule engine is built in
     lang: str = "en",
     lexicon_path: Optional[str | Path] = None,
+    neural_g2p=None,
 ) -> TextProcessor:
     """Factory matching the reference signature (text.py:291-307).
 
     ``use_nemo`` is accepted for compatibility; normalization is always the
     deterministic built-in rule engine. ``lexicon_path`` may point at any
-    CMUdict-format file to extend the built-in core lexicon. OOV words go
-    through the rule G2P.
+    CMUdict-format file to extend the built-in core lexicon. ``neural_g2p``:
+    None/True = use the shipped transformer checkpoint when present, False =
+    rule G2P only, or a ready NeuralG2P instance.
     """
     del use_nemo, lang
     lexicon = None
     if lexicon_path is not None and Path(lexicon_path).exists():
         lexicon = Lexicon.from_cmudict_file(lexicon_path)
         logger.info("Loaded lexicon with %d entries", len(lexicon))
-    return TextProcessor(lexicon=lexicon, use_g2p=use_g2p)
+    return TextProcessor(
+        lexicon=lexicon, use_g2p=use_g2p, neural_g2p=neural_g2p
+    )
 
 
 def chunk_text_by_phonemes(

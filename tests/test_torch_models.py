@@ -7,14 +7,18 @@ import numpy as np
 import pytest
 import torch
 
+from iris_tts_tpu.models.discriminators import HiFiGANDiscriminators as JDisc
 from iris_tts_tpu.models.encoder import DurationPredictor as JDur
 from iris_tts_tpu.models.encoder import PhonemeEncoder as JEnc
 from iris_tts_tpu.models.hifigan import HiFiGANGenerator as JHiFi
 from iris_tts_tpu.models.pipeline import TTSPipeline as JPipeline
 from iris_tts_tpu.models.postnet import PostNet as JPostNet
 from iris_tts_tpu.models.vae import TextConditionedVAE as JVAE
-from iris_tts_tpu.text.frontend import create_text_processor
-from iris_tts_tpu_torch.convert.from_jax import state_dict_from_jax
+from iris_tts_tpu_torch.convert.from_jax import (
+    module_state_from_jax,
+    state_dict_from_jax,
+)
+from iris_tts_tpu_torch.models.discriminators import HiFiGANDiscriminators
 from iris_tts_tpu_torch.models.encoder import DurationPredictor, PhonemeEncoder
 from iris_tts_tpu_torch.models.hifigan import HiFiGANGenerator
 from iris_tts_tpu_torch.models.pipeline import SynthesisModel
@@ -138,8 +142,7 @@ def test_hifigan_matches_jax():
 
 
 def test_converter_consumes_every_leaf_once():
-    jpipe = JPipeline.initialize(
-        CFG, seed=0, text_processor=create_text_processor(neural_g2p=False))
+    jpipe = JPipeline.initialize(CFG, seed=0)
     params = numpy_tree(jpipe.params)
     model = SynthesisModel(port_config(jpipe.config))
     sd = state_dict_from_jax(params, model)
@@ -153,3 +156,20 @@ def test_converter_consumes_every_leaf_once():
     params["hifigan"]["stray"] = {"unknown_leaf": np.zeros(3, np.float32)}
     with pytest.raises(ValueError, match="unconsumed"):
         state_dict_from_jax(params)
+    # The training slice's trees: the discriminators (4-D MPD kernels,
+    # grouped MSD convs) and a PostNet stage's params + batch_stats.
+    jd = JDisc(width=0.125)
+    disc_params = numpy_tree(jax.jit(jd.init)(
+        jax.random.PRNGKey(0), jnp.zeros((1, 1024)))["params"])
+    disc = HiFiGANDiscriminators(width=0.125)
+    dsd = module_state_from_jax(disc_params, module=disc)
+    assert len(dsd) == len(jax.tree_util.tree_leaves(disc_params))
+    disc.load_state_dict(dsd, strict=True)
+    pn = numpy_tree(jpipe.params["postnet"])
+    psd = module_state_from_jax(pn["params"], pn["batch_stats"],
+                                PostNet(PCFG.postnet))
+    assert len(psd) - sum(k.endswith("num_batches_tracked") for k in psd) \
+        == len(jax.tree_util.tree_leaves(pn))
+    disc_params["mpd"]["period_3"]["stray"] = {"scale": np.zeros(2)}
+    with pytest.raises(ValueError, match="unknown"):
+        module_state_from_jax(disc_params, module=disc)

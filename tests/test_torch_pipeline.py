@@ -15,7 +15,6 @@ import pytest
 import torch
 
 from iris_tts_tpu.models.pipeline import TTSPipeline as JPipeline
-from iris_tts_tpu.text.frontend import create_text_processor
 from iris_tts_tpu_torch import config as port_cfg
 from iris_tts_tpu_torch.models.pipeline import TTSPipeline, host_pcm16
 from tests.torch_port_utils import max_abs, numpy_tree, port_config, small_config
@@ -32,9 +31,7 @@ BUCKETS = dict(phoneme_buckets=(16, 32, 64),
 
 @pytest.fixture(scope="module")
 def pipes():
-    jpipe = JPipeline.initialize(
-        small_config(), seed=3,
-        text_processor=create_text_processor(neural_g2p=False))
+    jpipe = JPipeline.initialize(small_config(), seed=3)
     # HiFiGAN's normal(0.01) init gives near-silent audio at this width;
     # scale its kernels so the waveform comparison sees order-one signal.
     jpipe.params["hifigan"] = jax.tree_util.tree_map_with_path(
@@ -136,13 +133,19 @@ def test_seeded_prior_is_reproducible(pipes):
 
 
 def test_port_imports_no_jax():
+    """Every module of the port, and chip_smoke.py, load without jax, flax,
+    optax, orbax or the JAX package."""
     code = (
-        "import sys, runpy\n"
-        "import iris_tts_tpu_torch, iris_tts_tpu_torch.models.pipeline\n"
-        "import iris_tts_tpu_torch.ops.mel_cuda, iris_tts_tpu_torch.convert\n"
+        "import sys, runpy, importlib, pkgutil\n"
+        "import iris_tts_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages("
+        "iris_tts_tpu_torch.__path__, 'iris_tts_tpu_torch.')]\n"
+        "assert 'iris_tts_tpu_torch.train.stages' in mods, mods\n"
+        "assert 'iris_tts_tpu_torch.text.neural_g2p' in mods, mods\n"
+        "[importlib.import_module(m) for m in mods]\n"
         "runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'iris_tts_tpu' or m.startswith('iris_tts_tpu.')]\n"
+        "roots = ('jax', 'flax', 'optax', 'orbax', 'iris_tts_tpu')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in roots]\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

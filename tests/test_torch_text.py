@@ -1,5 +1,6 @@
 """Port parity: the port's own copy of the text frontend gives the same
-phoneme ids as the JAX package's (rules-only G2P on both sides)."""
+phoneme ids as the JAX package's (both with their defaults, neural G2P on;
+``tests/test_torch_g2p.py`` holds the rules-only case)."""
 
 import numpy as np
 import pytest
@@ -24,7 +25,7 @@ TEXTS = [
 
 @pytest.fixture(scope="module")
 def frontends():
-    return (jax_frontend(neural_g2p=False), JaxVocab.default_arpabet(),
+    return (jax_frontend(), JaxVocab.default_arpabet(),
             create_text_processor(), PhonemeVocab.default_arpabet())
 
 

@@ -60,3 +60,27 @@ def max_abs(a, b) -> float:
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     assert a.shape == b.shape, (a.shape, b.shape)
     return float(np.max(np.abs(a - b))) if a.size else 0.0
+
+
+def jax_params_from_port(template, state_dict):
+    """The inverse of ``state_dict_from_jax``: the port's tensors laid out
+    as the JAX ``TTSPipeline.params`` tree ``template`` (numpy leaves). Each
+    leaf's layout change is read off the converter itself, by converting an
+    array of flat indices."""
+    from iris_tts_tpu_torch.convert.from_jax import _convert_leaf
+
+    def leaf(path, value):
+        shape = np.shape(value)
+        key, perm = _convert_leaf(path, np.arange(np.size(value)).reshape(
+            shape))
+        out = np.empty(np.size(value), np.float32)
+        out[perm.ravel()] = state_dict[key].detach().cpu().numpy().ravel()
+        return out.reshape(shape)
+
+    def tree(t, path):
+        return {k: tree(v, path + (k,)) if hasattr(v, "items")
+                else leaf(path + (k,), v) for k, v in t.items()}
+
+    return {top: ({part: tree(sub[part], (top,)) for part in sub}
+                  if top == "postnet" else tree(sub, (top,)))
+            for top, sub in template.items()}
