@@ -31,12 +31,31 @@ every kernel against its plain PyTorch version:
    bit-exact checkpoint round trip; ``TTSPipeline.from_checkpoints`` and one
    synthesized sentence; one step of each stage's loss at a small width on
    the card and on the CPU, losses and gradients held together (≤ 1e-4 of
-   the largest |g|).
+   the largest |g|);
+7. serving at full width (``IrisConfig()``, seeded random weights with
+   ``conv_post`` scaled so the peak lies near 0.5, since unscaled random
+   weights quantize to PCM16 zeros): ``warmup_fused`` and
+   ``warmup_batched`` over batch buckets (1, 2, 4, 8) on ladders cut to
+   phoneme buckets (16 … 128) and frame buckets (128 … 1536), run by
+   ``TTSServer.start()`` on the batcher's device thread; the
+   server (127.0.0.1, device-side PCM16) answers three bursts of 16
+   ``POST /synthesize`` from 8 client threads (every WAV 22 050 Hz, chunks
+   × 256 samples plus gaps, not silent) and one ``POST
+   /synthesize_stream`` (de-chunked, chunk and gap lengths checked, time
+   to first audio); a seeded request through the server equals
+   ``synthesize`` on the card (≤ 1e-6 of the peak through PCM16); then,
+   with the server stopped, two 8-row slices with and without the
+   dispatch/collect overlap, a warmed shape's first call on a new thread,
+   ``vocode_streaming`` (64-frame chunks) vs
+   ``vocode`` on 700 frames (≤ 1e-5 of the peak, and the PCM16 variant),
+   and ``save``/``load`` on the card (bitwise at temperature 0; ``half``
+   within 1e-2 of the peak). The server stops in a ``finally``.
 
-Two paths drive the kernel: synthesis (phases 3 and 4) and training (phase
-6). Each path's launch counts are zeroed just before it and read just
-after, and a kernel of the path that was not launched fails the run. The
-last three lines are the card's name and power limit, a
+Three paths drive the kernel, or not: synthesis (phases 3 and 4),
+training (phase 6) and serving (phase 7, which computes no log-mel: 0
+launches). Each path's launch counts are zeroed just before it and read
+just after, and a kernel of the path that was not launched fails the run.
+The last three lines are the card's name and power limit, a
 ``{"kernels": [...]}`` JSON line, and ``{"ok": true, "device": {...}}``.
 Any failed phase exits non-zero; so does a host without a CUDA device.
 """
@@ -69,6 +88,28 @@ BATCH = [
 ]
 SHORT = "Hello world."
 TRAIN_SENTENCE = "The old gardener found a basket of apples near the station."
+# Phase 7's traffic: short and medium sentences and one three-sentence text
+# (two chunks at the 128-phoneme cap).
+SERVE_TEXTS = [
+    "Hello there.",
+    "Good morning.",
+    "Thank you very much.",
+    "See you soon.",
+    "The quick brown fox jumps over the lazy dog.",
+    "Dr. Smith paid $12.50 on January 3, 1984.",
+    "Speech synthesis on a graphics card is fast.",
+    ("The old gardener found a basket of apples near the railway station "
+     "on a cold morning in early November. He carried it home along the "
+     "river, past the mill and the church, and set it down beside the "
+     "kitchen door. By evening the whole village had heard about the "
+     "apples, and nobody could say where they had come from."),
+]
+# Phase 7's depth cut: the ladders are cut so the warmup fits the run's
+# time; widths stay full.
+SERVE_PHONEME_BUCKETS = (16, 32, 64, 128)
+SERVE_FRAME_BUCKETS = (128, 192, 256, 384, 512, 768, 1024, 1536)
+SERVE_BATCH_BUCKETS = (1, 2, 4, 8)
+BURST_ROUNDS = 3
 # The loss each stage's fixed-batch check follows.
 STAGE_LOSS = {"duration": "duration_loss", "vae": "total",
               "postnet": "postnet_l1", "gan": "gen_mel_l1"}
@@ -141,6 +182,37 @@ def max_abs(a, b) -> float:
     b = torch.as_tensor(b).double().cpu()
     check(a.shape == b.shape, f"shapes {tuple(a.shape)} vs {tuple(b.shape)}")
     return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+def profile_line(label: str, fn, card: str) -> None:
+    """Run ``fn`` (which returns host data) once under ``torch.profiler``
+    and print its wall time, the device's busy time and share, and the
+    kernels with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # Kernel rows only: a CPU op's row repeats the device time of the
+    # kernels it launched.
+    dev_rows = [(e.key, e.self_device_time_total)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+    dev_us = sum(t for _, t in dev_rows)
+    if dev_us > 0:
+        top = sorted(dev_rows, key=lambda r: -r[1])[:6]
+        print(f"profile {label} (profiler on): wall {wall_us / 1e3:.2f} ms, "
+              f"device busy {dev_us / 1e3:.2f} ms "
+              f"({100 * dev_us / wall_us:.1f}%); top device time: "
+              + "; ".join(f"{k[:60]} {t / 1e3:.2f} ms" for k, t in top)
+              + f" ({card})", flush=True)
+    else:
+        print(f"profile {label}: the profiler recorded no device time (not "
+              "measured)", flush=True)
 
 
 def log_mel_work(batch: int, n_samples: int, cfg, tables):
@@ -466,6 +538,348 @@ def phase6_training(dev, card: str) -> int:
         tmp.cleanup()
 
 
+def _post(host, port, path, body, timeout=300):
+    """One HTTP request → (status, headers dict, body bytes, seconds)."""
+    import http.client
+
+    conn = http.client.HTTPConnection(host, port, timeout=timeout)
+    t0 = time.perf_counter()
+    try:
+        conn.request("POST", path, body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = resp.read()
+        return resp.status, dict(resp.getheaders()), data, \
+            time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def _wav_pcm(body: bytes):
+    import io
+    import wave
+
+    import numpy as np
+
+    with wave.open(io.BytesIO(body)) as w:
+        return w.getframerate(), np.frombuffer(
+            w.readframes(w.getnframes()), "<i2")
+
+
+def _pct(values, p):
+    v = sorted(values)
+    return v[min(len(v) - 1, int(p * len(v)))]
+
+
+def phase7_serving(dev, card: str) -> int:
+    """Serving on the card (see the module docstring). Returns the log-mel
+    kernel's launches on this path (serving computes no log-mel)."""
+    import http.client
+    import threading
+
+    import numpy as np
+
+    from iris_tts_tpu_torch import IrisConfig
+    from iris_tts_tpu_torch.models.hifigan import receptive_radius_frames
+    from iris_tts_tpu_torch.models.pipeline import TTSPipeline, host_pcm16
+    from iris_tts_tpu_torch.ops import mel_cuda
+    from iris_tts_tpu_torch.serve import TTSServer
+
+    mel_cuda.log_mel_cuda.launches = 0
+    t0 = time.perf_counter()
+    pipe = TTSPipeline.initialize(IrisConfig(), seed=0, device=dev)
+    pipe.phoneme_buckets = SERVE_PHONEME_BUCKETS
+    pipe.frame_buckets = SERVE_FRAME_BUCKETS
+    hop = pipe.config.hifigan.total_upsample
+    sr = pipe.config.audio.sample_rate
+    # Random HiFiGAN weights give rms ~6.5e-6, which PCM16 quantizes to
+    # zeros: scale the output conv so the peak lies near 0.5 and the
+    # PCM16 comparisons below see real samples.
+    probe = pipe.synthesize(SENTENCE, temperature=0.0)
+    scale = 0.5 / float(np.abs(probe).max())
+    with torch.no_grad():
+        pipe.model.hifigan.conv_post.weight.mul_(scale)
+        pipe.model.hifigan.conv_post.bias.mul_(scale)
+    peak = float(np.abs(pipe.synthesize(SENTENCE, temperature=0.0)).max())
+    check(0.3 < peak < 0.8, f"scaled peak {peak} near 0.5")
+    print(f"phase 7 pipeline: IrisConfig() at full width, seeded random "
+          f"weights, conv_post scaled x{scale:.4g} for all of phase 7 so "
+          f"the peak lies near 0.5 (now {peak:.3f}; unscaled random weights "
+          f"quantize to PCM16 zeros), built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 1. warmup on the batcher's device thread, on the cut ladders
+    print(f"phase 7 depth cut: phoneme buckets {pipe.phoneme_buckets} (of "
+          f"16 … 512), frame buckets {pipe.frame_buckets} (of 128 … 4096), "
+          f"batch buckets {SERVE_BATCH_BUCKETS}; widths full", flush=True)
+    server = TTSServer(pipe, host="127.0.0.1", port=0,
+                       max_batch=max(SERVE_BATCH_BUCKETS), max_wait_ms=5.0,
+                       pcm16_transfer=True)
+    check(server.batcher._batch_buckets == list(SERVE_BATCH_BUCKETS),
+          "the server's batch buckets")
+    n_fused = len(pipe.fused_bucket_pairs())
+    try:
+        server.start()
+        n_warmed = server.batcher.n_warmed
+        check(n_warmed > n_fused, f"warmup ran {n_warmed} shapes")
+        print(f"phase 7 warmup (warmup_fused, then warmup_batched over the "
+              f"batch buckets, on the batcher's device thread): {n_fused} "
+              f"fused and {n_warmed - n_fused} two-stage shapes in "
+              f"{server.batcher.warmup_s:.2f} s ({card})", flush=True)
+        host, port = server.address[:2]
+        gap = int(round(server.batcher._gap_ms / 1000.0 * sr))
+        n_chunks = {t: len(server.batcher.chunk_text(t)) for t in SERVE_TEXTS}
+        three = SERVE_TEXTS[-1]
+        check(n_chunks[three] >= 2, f"the long text streams in "
+                                    f"{n_chunks[three]} chunks")
+
+        # 2. a burst of 16 requests from 8 client threads, three times:
+        # with 16 requests a round's p95 is its maximum, so each round is
+        # printed and the 48 latencies are also pooled
+        jobs = [SERVE_TEXTS[i % len(SERVE_TEXTS)] for i in range(16)]
+        pooled, rounds = [], []
+        for rnd in range(BURST_ROUNDS):
+            results = [None] * len(jobs)
+            errors = []
+
+            def client(k):
+                try:
+                    for i in range(k, len(jobs), 8):
+                        results[i] = _post(host, port, "/synthesize",
+                                           {"text": jobs[i]})
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errors.append(repr(e))
+
+            threads = [threading.Thread(target=client, args=(k,))
+                       for k in range(8)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            burst_s = time.perf_counter() - t0
+            check(not errors and not any(t.is_alive() for t in threads),
+                  f"burst clients finished ({errors})")
+            audio_s = 0.0
+            for text, (status, headers, body, _) in zip(jobs, results):
+                check(status == 200 and headers.get("Content-Type") ==
+                      "audio/wav", f"burst status {status}")
+                rate, pcm = _wav_pcm(body)
+                check(rate == sr, f"WAV rate {rate}")
+                n = n_chunks[text]
+                check(len(pcm) > 0 and (len(pcm) - (n - 1) * gap) % hop == 0,
+                      f"WAV length {len(pcm)} = chunks x {hop} + gaps")
+                check(bool(np.isfinite(pcm.astype(np.float32)).all()),
+                      "WAV samples finite")
+                check(int(np.abs(pcm).max()) > 0, "WAV not silent")
+                audio_s += len(pcm) / sr
+            lats = [r[3] * 1e3 for r in results]
+            pooled += lats
+            rounds.append(f"round {rnd + 1}: {burst_s:.3f} s, "
+                          f"{audio_s / burst_s:.1f}x realtime, p50 "
+                          f"{_pct(lats, 0.5):.2f} ms, max {max(lats):.2f} ms")
+        st = server.batcher.stats()
+        print(f"phase 7 burst: {BURST_ROUNDS} rounds of {len(jobs)} POST "
+              f"/synthesize from 8 client threads ({audio_s:.2f} s of audio "
+              f"a round); " + "; ".join(rounds) + f"; all "
+              f"{len(pooled)} client latencies p50 {_pct(pooled, 0.5):.2f} "
+              f"ms, p95 {_pct(pooled, 0.95):.2f} ms, max {max(pooled):.2f} "
+              f"ms; batch_size_hist (all rounds) {st['batch_size_hist']}, "
+              f"mean_batch_size {st['mean_batch_size']:.3f}, server "
+              f"latency_ms {st['latency_ms']} ({card})", flush=True)
+
+        # 3. one stream, read chunk by chunk
+        conn = http.client.HTTPConnection(host, port, timeout=300)
+        t0 = time.perf_counter()
+        conn.request("POST", "/synthesize_stream",
+                     body=json.dumps({"text": three}),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        check(resp.status == 200, f"stream status {resp.status}")
+        pieces, ttfa_ms = [], None
+        while True:
+            size = int(resp.fp.readline().strip(), 16)
+            if size == 0:
+                resp.fp.readline()
+                break
+            pieces.append(np.frombuffer(resp.fp.read(size), "<i2"))
+            resp.fp.readline()
+            if ttfa_ms is None:
+                ttfa_ms = (time.perf_counter() - t0) * 1e3
+        stream_ms = (time.perf_counter() - t0) * 1e3
+        conn.close()
+        n = n_chunks[three]
+        check(len(pieces) == 2 * n - 1, f"{len(pieces)} stream chunks for "
+                                        f"{n} sentence chunks")
+        audio = pieces[0::2]
+        check(all(len(a) > 0 and len(a) % hop == 0 for a in audio),
+              "stream chunk lengths = frames x hop")
+        check(all(len(g) == gap and not g.any() for g in pieces[1::2]),
+              "stream gaps are silence of the stated length")
+        total = sum(len(x) for x in pieces)
+        check(total == sum(len(a) for a in audio) + (n - 1) * gap,
+              "stream length = chunks + gaps")
+        print(f"phase 7 stream: {n} chunks, {total} samples; client time to "
+              f"first audio {ttfa_ms:.2f} ms, whole response "
+              f"{stream_ms:.2f} ms; server ttfa_ms "
+              f"{server.batcher.stats()['ttfa_ms']} ({card})", flush=True)
+
+        # the stream's first chunk alone through the server (fused path)
+        first = pipe._chunk_long_text(three, pipe.phoneme_buckets[-1])[0]
+        first_req_ms = statistics.median(
+            _post(host, port, "/synthesize", {"text": first, "seed": 0})[3]
+            * 1e3 for _ in range(5))
+
+        # 4. a seeded request through the server
+        seeded_text, seed = SERVE_TEXTS[5], 1234
+        status, _, body, _ = _post(host, port, "/synthesize",
+                                   {"text": seeded_text, "seed": seed})
+        check(status == 200, f"seeded status {status}")
+        served = _wav_pcm(body)[1]
+    finally:
+        server.stop()
+    check(not server.batcher.healthy(), "server stopped")
+    direct = pipe.synthesize(seeded_text, seed=seed, fused=True)
+    want = host_pcm16(direct)
+    check(len(served) == len(want), "seeded lengths")
+    d_peak = float(np.abs(direct).max())
+    err = float(np.abs(served.astype(np.float64) - want).max()) / 32767.0
+    check(err <= 1e-6 * d_peak,
+          f"server vs direct {err} <= 1e-6 x peak {d_peak}")
+    print(f"phase 7 seeded request: server WAV vs synthesize(seed={seed}, "
+          f"fused=True) on the card, both through PCM16: max-abs {err:.3e} "
+          f"(peak {d_peak:.3f}); bitwise equal "
+          f"{bool(np.array_equal(served, want))}", flush=True)
+
+    # dispatch/collect overlap: two slices of 8 rows, back to back vs
+    # slice 2 dispatched before slice 1 is collected (the batcher's order)
+    rows = [SERVE_TEXTS[4 + i % 3] for i in range(8)]
+
+    def sequential():
+        for _ in range(2):
+            pipe._batched_collect(pipe._batched_dispatch(rows, seed=0,
+                                                         pcm16=True))
+
+    def overlapped():
+        h1 = pipe._batched_dispatch(rows, seed=0, pcm16=True)
+        h2 = pipe._batched_dispatch(rows, seed=0, pcm16=True)
+        pipe._batched_collect(h1)
+        pipe._batched_collect(h2)
+
+    seq_ms = time_host_ms(sequential)
+    ovl_ms = time_host_ms(overlapped)
+    seq2_ms = time_host_ms(sequential)
+    print(f"phase 7 two slices of 8 rows: dispatch+collect back to back "
+          f"{seq_ms:.2f} / {seq2_ms:.2f} ms, slice 2 dispatched before "
+          f"slice 1 is collected {ovl_ms:.2f} ms (median of 5; {card})",
+          flush=True)
+    # cuDNN's execution plans are kept per thread: a shape warmed on this
+    # thread is cold on a new one
+    def on_new_thread():
+        times = []
+
+        def run():
+            with torch.inference_mode():
+                for _ in range(2):
+                    t1 = time.perf_counter()
+                    pipe.synthesize(first, seed=0, fused=True, pcm16=True)
+                    times.append((time.perf_counter() - t1) * 1e3)
+
+        t = threading.Thread(target=run)
+        t.start()
+        t.join(timeout=300)
+        check(len(times) == 2, "new-thread calls finished")
+        return times
+
+    warm_ms = time_host_ms(lambda: pipe.synthesize(first, seed=0, fused=True,
+                                                   pcm16=True))
+    cold = on_new_thread()
+    print(f"phase 7 per-thread warmup: the first stream chunk's fused shape, "
+          f"warmed on this thread, {warm_ms:.2f} ms here (median of 5); on a "
+          f"new thread its first call {cold[0]:.2f} ms, second "
+          f"{cold[1]:.2f} ms ({card})", flush=True)
+
+    # what the stream's time to first audio is made of
+    chunk_ms = time_host_ms(lambda: pipe._chunk_long_text(
+        three, pipe.phoneme_buckets[-1]))
+    first_ms = time_host_ms(lambda: pipe.synthesize(
+        first, seed=0, fused=True, pcm16=True))
+    n_ids = len(pipe._text_to_ids_cached(first))
+    budget = pipe._fused_frame_budget(np.asarray([n_ids]))
+    print(f"phase 7 stream parts: sentence chunking of the text (host "
+          f"frontend, on the handler thread) {chunk_ms:.2f} ms; fused "
+          f"synthesize of the first chunk ({n_ids} phonemes, frame budget "
+          f"{budget}, {len(pipe.synthesize(first, seed=0)) // hop} frames "
+          f"kept) {first_ms:.2f} ms; the same chunk as one POST "
+          f"/synthesize {first_req_ms:.2f} ms (medians of 5; {card})",
+          flush=True)
+    profile_line("phase 7 two slices of 8 rows, overlapped", overlapped, card)
+    profile_line("phase 7 fused request (first stream chunk)",
+                 lambda: pipe.synthesize(first, seed=0, fused=True,
+                                         pcm16=True), card)
+
+    # 5. streaming vocoding against the whole-mel call
+    rng = np.random.default_rng(7)
+    n_mels = pipe.config.hifigan.in_channels
+    mel = rng.normal(-3.0, 2.0, (700, n_mels)).astype(np.float32)
+    full = pipe.vocode(mel)
+    chunks = list(pipe.vocode_streaming(mel, chunk_frames=64))
+    got = np.concatenate(chunks)
+    check(got.shape == full.shape, "streamed length")
+    v_peak = float(np.abs(full).max())
+    v_err = float(np.abs(got.astype(np.float64) - full).max())
+    check(v_err <= 1e-5 * v_peak,
+          f"vocode_streaming vs vocode {v_err} <= 1e-5 x peak {v_peak}")
+    pcm_chunks = np.concatenate(list(pipe.vocode_streaming(
+        mel, chunk_frames=64, pcm16=True)))
+    check(bool(np.array_equal(pcm_chunks, host_pcm16(got))),
+          "pcm16 streaming = host PCM16 of the float stream")
+    lsb = int(np.abs(pcm_chunks.astype(np.int32) - host_pcm16(full)).max())
+    check(lsb <= 1, f"pcm16 streaming vs PCM16 of vocode: {lsb} LSB")
+    ctx = receptive_radius_frames(pipe.config.hifigan)
+    window = 64 + 2 * ctx
+    with torch.inference_mode():
+        mel_d = torch.from_numpy(mel).to(dev)
+        win_ms = time_cuda_ms(lambda: pipe._vocode_window(
+            mel_d[None, 100:100 + window], ctx * hop, 64 * hop, False),
+            reps=20, warmup=3, graph=False)
+        full_ms = time_cuda_ms(lambda: pipe._vocode_device(mel_d[None]),
+                               reps=20, warmup=3, graph=False)
+    print(f"phase 7 vocode_streaming: 700 frames in {len(chunks)} chunks of "
+          f"64 frames ({window}-frame windows) vs vocode: max-abs "
+          f"{v_err:.3e} = {v_err / v_peak:.3e} of the peak {v_peak:.3f}; "
+          f"pcm16 variant (conv_post scaled, as above) equals the host "
+          f"PCM16 of the float stream and is within {lsb} LSB of PCM16 "
+          f"vocode; one window {win_ms:.3f} ms, whole mel {full_ms:.3f} ms "
+          f"(device, 20 calls back to back; {card})", flush=True)
+
+    # 6. save and load on the card
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_save_")
+    try:
+        want = pipe.synthesize(SENTENCE, temperature=0.0)
+        pipe.save(Path(tmp.name) / "full")
+        pipe.save(Path(tmp.name) / "half", half=True)
+        again = TTSPipeline.load(Path(tmp.name) / "full", device=dev)
+        check(next(again.model.parameters()).device.type == dev.type,
+              "loaded onto the card")
+        same = np.array_equal(again.synthesize(SENTENCE, temperature=0.0),
+                              want)
+        check(same, "save/load synthesize bitwise equal")
+        half = TTSPipeline.load(Path(tmp.name) / "half", device=dev)
+        h = half.synthesize(SENTENCE, temperature=0.0)
+        check(h.shape == want.shape, "half-precision length")
+        h_err = float(np.abs(h.astype(np.float64) - want).max())
+        w_peak = float(np.abs(want).max())
+        check(h_err <= 1e-2 * w_peak,
+              f"half-precision load {h_err} <= 1e-2 x peak {w_peak}")
+        print(f"phase 7 save/load on the card: temperature 0 bitwise equal "
+              f"{same}; half=True max-abs {h_err:.3e} = "
+              f"{h_err / w_peak:.3e} of the peak", flush=True)
+    finally:
+        tmp.cleanup()
+    return mel_cuda.log_mel_cuda.launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -631,33 +1045,12 @@ def main() -> int:
     # -- 6. training at full width (the training path) ----------------------
     train_launches = phase6_training(dev, card)
 
-    # -- where the time goes: one fused synthesize under the profiler --------
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    # -- 7. serving at full width (the serving path) ------------------------
+    serve_launches = phase7_serving(dev, card)
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pipe.synthesize(SENTENCE, seed=1)
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # Kernel rows only: a CPU op's row repeats the device time of the
-    # kernels it launched.
-    dev_rows = [(e.key, e.self_device_time_total)
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and e.self_device_time_total > 0]
-    dev_us = sum(t for _, t in dev_rows)
-    if dev_us > 0:
-        top = sorted(dev_rows, key=lambda r: -r[1])[:6]
-        print(f"profile fused synthesize (profiler on): wall "
-              f"{wall_us / 1e3:.2f} ms, "
-              f"device busy {dev_us / 1e3:.2f} ms "
-              f"({100 * dev_us / wall_us:.1f}%); top device time: "
-              + "; ".join(f"{k[:60]} {t / 1e3:.2f} ms" for k, t in top)
-              + f" ({card})", flush=True)
-    else:
-        print("profile fused synthesize: the profiler recorded no device "
-              "time (not measured)", flush=True)
+    # -- where the time goes: one fused synthesize under the profiler --------
+    profile_line("fused synthesize", lambda: pipe.synthesize(SENTENCE, seed=1),
+                 card)
 
     jax_pkg = iris_tts_tpu_torch.__name__.removesuffix("_torch")
     kernels = [{
@@ -665,9 +1058,10 @@ def main() -> int:
         "route": "cuda",
         "source": "iris_tts_tpu_torch/ops/csrc/log_mel.cu",
         "replaces": f"{jax_pkg}/ops/mel_pallas.py:110",
-        "launches": launches + train_launches,
+        "launches": launches + train_launches + serve_launches,
         "launches_by_path": {"synthesis": launches,
-                             "training": train_launches},
+                             "training": train_launches,
+                             "serving": serve_launches},
         "max_abs_err": worst,
         "ms": k_ms,
         "plain_ms": p_ms,

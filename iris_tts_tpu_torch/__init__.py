@@ -3,8 +3,10 @@
 A second package beside the JAX one, with the same module names so each
 counterpart is easy to find. It imports ``torch`` and nothing of JAX or of
 the JAX package; its entry points run on a CUDA device unless the caller
-passes ``device="cpu"``. The one TPU kernel of the JAX package (the fused
-log-mel) is a hand-written CUDA kernel here (``ops/csrc/log_mel.cu``).
+passes ``device="cpu"``. Serving (the dynamic batcher and the HTTP
+server) is in ``iris_tts_tpu_torch.serve``. The one TPU kernel of the JAX
+package (the fused log-mel) is a hand-written CUDA kernel here
+(``ops/csrc/log_mel.cu``).
 """
 
 from iris_tts_tpu_torch.config import (
@@ -34,6 +36,10 @@ def __getattr__(name):
         from iris_tts_tpu_torch.text.frontend import create_text_processor
 
         return create_text_processor
+    if name in ("TTSServer", "DynamicBatcher", "serve_forever"):
+        from iris_tts_tpu_torch import serve
+
+        return getattr(serve, name)
     if name == "log_mel_spectrogram":
         from iris_tts_tpu_torch.ops.stft import log_mel_spectrogram
 

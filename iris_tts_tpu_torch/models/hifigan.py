@@ -90,3 +90,57 @@ class HiFiGANGenerator(nn.Module):
             x = acc / self.num_kernels
         x = self.conv_post(F.leaky_relu(x, LRELU_SLOPE))
         return torch.tanh(x)[:, 0]
+
+
+def receptive_radius_frames(config: HiFiGANConfig = HiFiGANConfig()) -> int:
+    """Upper bound on the generator's receptive-field radius, in mel
+    frames: an output sample at time t depends only on mel frames within
+    ``radius`` of t / total_upsample.
+
+    This is what makes exact chunked vocoding possible: a chunk computed
+    with ``radius`` frames of real context on each side equals the same
+    region of a full-utterance pass, because the network is fully
+    convolutional (``TTSPipeline.vocode_streaming``).
+
+    Walks the ladder accumulating each layer's radius in output-sample
+    units: a dilated conv adds ``(k-1)//2 * d`` current-rate steps; a
+    transposed conv adds at most ``ceil(k/u)`` input-rate steps; MRF
+    branches run in parallel, so their radius is the max over resblocks of
+    the summed sequential pairs. Default topology → 15 frames.
+    """
+    total_up = config.total_upsample
+    spu = total_up  # output samples per step at the current rate
+    r = 3 * spu  # conv_pre k=7
+    mrf = max(
+        sum((k - 1) // 2 * d + (k - 1) // 2 for d in dils)
+        for k, dils in zip(config.resblock_kernel_sizes,
+                           config.resblock_dilations)
+    )
+    for u, k in zip(config.upsample_rates, config.upsample_kernel_sizes):
+        r += -(-k // u) * spu  # transposed conv, in input-rate steps
+        spu //= u
+        r += mrf * spu
+    r += 3  # conv_post k=7 (spu == 1)
+    return -(-r // total_up)
+
+
+def iter_stream_windows(t: int, chunk_frames: int, context_frames: int):
+    """The exact-streaming window plan of ``TTSPipeline.vocode_streaming``:
+    one home for the clamping arithmetic that sample-exactness depends on.
+
+    Yields ``(a, b, w0, start_f, start_cl_f)`` per chunk: mel rows [a, b)
+    are produced from window ``[w0, w0 + chunk + 2*context)``; the keep
+    region starts ``start_f`` frames into the window, and ``start_cl_f`` is
+    that start clamped so a fixed-size slice fits (the caller trims the
+    difference, in samples, on the host). Windows touching the true mel
+    boundaries align to them so layer zero-padding matches a full pass.
+    Requires ``t > chunk_frames + 2*context_frames`` (shorter mels fit one
+    whole-mel call).
+    """
+    window = chunk_frames + 2 * context_frames
+    for a in range(0, t, chunk_frames):
+        b = min(a + chunk_frames, t)
+        w0 = min(max(a - context_frames, 0), t - window)
+        start_f = a - w0
+        start_cl_f = min(start_f, window - chunk_frames)
+        yield a, b, w0, start_f, start_cl_f

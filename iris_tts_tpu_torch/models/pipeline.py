@@ -14,12 +14,19 @@ path. Batches take the two-stage path, whose frame bucket is measured from
 the predicted durations.
 
 Constructors: seeded random weights (:meth:`TTSPipeline.initialize`), the
-JAX package's params (:meth:`TTSPipeline.from_jax_params`), or the four
-training stages' checkpoints (:meth:`TTSPipeline.from_checkpoints`).
+JAX package's params (:meth:`TTSPipeline.from_jax_params`), the four
+training stages' checkpoints (:meth:`TTSPipeline.from_checkpoints`), or a
+directory written by :meth:`TTSPipeline.save` (:meth:`TTSPipeline.load`).
+
+Beyond one-shot synthesis: exact chunked vocoding
+(:meth:`~TTSPipeline.vocode_streaming`), long text split at sentence
+boundaries (:meth:`~TTSPipeline.synthesize_long`,
+:meth:`~TTSPipeline.stream`, :meth:`~TTSPipeline.synthesize_to_file`),
+warmup of every serving shape, and the dispatch/collect split the serving
+batcher (``serve/batcher.py``) drives.
 
 Not in this package yet: the packed single-transfer wire format (a TPU
-transport), meshes, streaming and sharded vocoding, the long-text and
-file entry points, and ``save``/``load`` of its own format.
+transport), Gaussian upsampling, bf16, meshes and sharded vocoding.
 
 Seeds do not reproduce across the two packages: prior noise here comes
 from a ``torch.Generator``. ``temperature=0`` makes the prior sample
@@ -28,20 +35,26 @@ exactly zero in both, which is how the tests compare them end to end.
 
 from __future__ import annotations
 
+import json
 import logging
 import time
 from dataclasses import dataclass, field, replace
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn as nn
 
-from iris_tts_tpu_torch.config import IrisConfig
+from iris_tts_tpu_torch.config import IrisConfig, load_config, save_config
 from iris_tts_tpu_torch.convert.from_jax import state_dict_from_jax
+from iris_tts_tpu_torch.data.audio_io import join_wave_chunks, write_wav
 from iris_tts_tpu_torch.models.encoder import DurationPredictor, PhonemeEncoder
-from iris_tts_tpu_torch.models.hifigan import HiFiGANGenerator
+from iris_tts_tpu_torch.models.hifigan import (
+    HiFiGANGenerator,
+    iter_stream_windows,
+    receptive_radius_frames,
+)
 from iris_tts_tpu_torch.models.layers import init_params
 from iris_tts_tpu_torch.models.postnet import PostNet
 from iris_tts_tpu_torch.models.vae import TextConditionedVAE
@@ -60,6 +73,7 @@ from iris_tts_tpu_torch.runtime import (
 )
 from iris_tts_tpu_torch.text.frontend import (
     TextProcessor,
+    chunk_text_by_phonemes,
     create_text_processor,
 )
 from iris_tts_tpu_torch.text.phonemes import PhonemeVocab
@@ -94,6 +108,19 @@ def host_pcm16(audio: np.ndarray) -> np.ndarray:
     """float waveform → int16 PCM on the host, with the same truncation as
     the on-device ``pcm16`` path."""
     return (np.clip(audio, -1.0, 1.0) * 32767.0).astype(np.int16)
+
+
+class _Dispatch(NamedTuple):
+    """Device results of one synthesis dispatch, not yet on the host:
+    audio rows (float32, or int16 with ``pcm16``), per-row frame counts,
+    the mels when the caller asked for them, and the number of real rows.
+    ``pcm16`` travels with the handle so the collect cannot misread it."""
+
+    audio: torch.Tensor
+    n_frames: torch.Tensor
+    mel: Optional[torch.Tensor]
+    n: int
+    pcm16: bool
 
 
 class SynthesisModel(nn.Module):
@@ -274,6 +301,107 @@ class TTSPipeline:
                    use_postnet=use_postnet, seed=seed)
 
     # ------------------------------------------------------------------
+    # deployable directory
+    # ------------------------------------------------------------------
+
+    def save(self, path: Union[str, Path], half: bool = False) -> None:
+        """Write the assembled pipeline as one deployable directory:
+        ``params`` (the model's state dict through
+        ``train.checkpoint.save_params``, BatchNorm statistics included),
+        ``config.json``, ``vocab.json`` and ``meta.json`` (the options and
+        the tuned serving knobs, with the JAX package's keys).
+
+        ``half=True`` stores the floating tensors as float16 (about half
+        the bytes; raises ``ValueError`` for a tensor outside float16's
+        range); :meth:`load` casts them back to float32.
+
+        The format is the port's own: this package does not read the orbax
+        directories the JAX package's ``save`` writes, and the JAX package
+        does not read these. Weights cross between the packages through
+        :meth:`from_jax_params`."""
+        from iris_tts_tpu_torch.train.checkpoint import save_params
+
+        path = Path(path)
+        path.mkdir(parents=True, exist_ok=True)
+        sd = {k: v.detach().cpu() for k, v in self.model.state_dict().items()}
+        if half:
+            sd = {k: v.half() if v.is_floating_point() else v
+                  for k, v in sd.items()}
+            for k, v in sd.items():
+                if v.is_floating_point() and not bool(v.isfinite().all()):
+                    raise ValueError(f"params tensor {k!r} exceeds the "
+                                     "float16 range; save it with half=False")
+        save_params(path / "params", sd)
+        save_config(self.config, path / "config.json")
+        self.vocab.save(path / "vocab.json")
+        (path / "meta.json").write_text(json.dumps({
+            "use_postnet": self.use_postnet,
+            "seed": self.seed,
+            "upsample": "hard",
+            "params_dtype": "float16" if half else "float32",
+            # Dropping these on reload would silently revert an operator's
+            # overflow-budget and bucket tuning.
+            "fused_frames_per_phoneme": self.fused_frames_per_phoneme,
+            "fused_overflow_tolerance": self.fused_overflow_tolerance,
+            "phoneme_buckets": list(self.phoneme_buckets),
+            "frame_buckets": list(self.frame_buckets),
+        }))
+
+    @classmethod
+    def load(
+        cls,
+        path: Union[str, Path],
+        lexicon_path: Optional[Union[str, Path]] = None,
+        device: DeviceLike = None,
+    ) -> "TTSPipeline":
+        """Load a directory written by :meth:`save` onto ``device``
+        (default: the CUDA device; raises without one). Raises
+        ``ValueError`` naming the tensor when a stored tensor is missing,
+        extra, or of another shape than the config builds."""
+        from iris_tts_tpu_torch.train.checkpoint import load_params
+
+        path = Path(path)
+        device = resolve_device(device)
+        config = load_config(path / "config.json")
+        vocab = PhonemeVocab.load(path / "vocab.json")
+        meta = json.loads((path / "meta.json").read_text())
+        if meta.get("upsample", "hard") != "hard":
+            raise ValueError(f"upsample={meta['upsample']!r} is not in this "
+                             "package (hard length regulation only)")
+        config, vocab, text_processor = cls._prepare(config, vocab, None,
+                                                     lexicon_path)
+        model = SynthesisModel(config)
+        want = model.state_dict()
+        sd = load_params(path / "params")
+        missing = sorted(set(want) - set(sd))
+        extra = sorted(set(sd) - set(want))
+        if missing or extra:
+            raise ValueError(f"params do not match the config: missing "
+                             f"{missing[:5]}, unexpected {extra[:5]}")
+        for k, v in sd.items():
+            if tuple(v.shape) != tuple(want[k].shape):
+                raise ValueError(
+                    f"params tensor {k!r} has shape {tuple(v.shape)}, the "
+                    f"config builds {tuple(want[k].shape)}")
+        if meta.get("params_dtype") == "float16":
+            sd = {k: v.float() if v.is_floating_point() else v
+                  for k, v in sd.items()}
+        model.load_state_dict(sd, strict=True)
+        pipe = cls._assemble(config, model, vocab, text_processor, device,
+                             meta.get("use_postnet", True),
+                             meta.get("seed", 1337))
+        pipe.fused_frames_per_phoneme = int(meta.get(
+            "fused_frames_per_phoneme", pipe.fused_frames_per_phoneme))
+        if "fused_overflow_tolerance" in meta:
+            tol = meta["fused_overflow_tolerance"]
+            pipe.fused_overflow_tolerance = None if tol is None else float(tol)
+        if "phoneme_buckets" in meta:
+            pipe.phoneme_buckets = tuple(meta["phoneme_buckets"])
+        if "frame_buckets" in meta:
+            pipe.frame_buckets = tuple(meta["frame_buckets"])
+        return pipe
+
+    # ------------------------------------------------------------------
     # device stages
     # ------------------------------------------------------------------
 
@@ -321,6 +449,15 @@ class TTSPipeline:
     def _vocode_device(self, mel: torch.Tensor) -> torch.Tensor:
         return self.model.hifigan(mel)
 
+    def _vocode_window(self, mel: torch.Tensor, start: int,
+                       chunk_samples: int, pcm16: bool) -> torch.Tensor:
+        """Vocode one fixed-size mel window and keep only the
+        ``chunk_samples`` samples from ``start``, sliced on the device so
+        the copy to the host is chunk-sized: the device stage of
+        :meth:`vocode_streaming`."""
+        audio = self._vocode_device(mel)
+        return self._maybe_pcm16(audio[:, start:start + chunk_samples], pcm16)
+
     @staticmethod
     def _maybe_pcm16(audio: torch.Tensor, pcm16: bool) -> torch.Tensor:
         """On-device PCM16: ``(clip(audio, −1, 1) · 32767)`` truncated to
@@ -328,6 +465,22 @@ class TTSPipeline:
         if not pcm16:
             return audio
         return (audio.float().clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
+
+    def _stage_b(self, enc, frames, t_bucket: int, seed_int: int,
+                 temperature: float, pcm16: bool, n: int,
+                 return_mel: bool = False) -> _Dispatch:
+        """Acoustic model, vocoder and optional PCM16 on the device, left
+        there (no host sync)."""
+        mel, n_frames = self._acoustic(enc, frames, seed_int, t_bucket,
+                                       temperature)
+        audio = self._maybe_pcm16(self._vocode_device(mel), pcm16)
+        return _Dispatch(audio, n_frames, mel if return_mel else None, n,
+                         pcm16)
+
+    def _sync(self) -> None:
+        """Wait for the device's queued work (warmup barrier)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------
     # host-side API
@@ -421,19 +574,70 @@ class TTSPipeline:
         self.fused_fallback_count += len(rows)
         return rows
 
-    def _fetch_rows(self, audio, n_frames, mel, pcm16: bool, n: int):
-        """One device→host copy of the batch, trimmed per row."""
+    def _fused_device(self, ids_np: np.ndarray, lengths_np: np.ndarray,
+                      t_bucket: int, seed_int: int, temperature: float,
+                      pcm16: bool, return_mel: bool = False):
+        """The fused path on the device for a padded id batch: stage A,
+        compression into the ``t_bucket`` budget, stage B. Returns the
+        handle and the per-row overflow deficit (device tensors)."""
+        ids, lengths = self._to_device(ids_np, lengths_np)
+        enc, frames, _ = self._stage_a(ids, lengths)
+        frames, deficit = self._compress(frames, t_bucket)
+        return self._stage_b(enc, frames, t_bucket, seed_int, temperature,
+                             pcm16, len(ids_np), return_mel), deficit
+
+    def _fused_dispatch(self, texts: Sequence[str], seed_int: int,
+                        temperature: float, pcm16: bool,
+                        return_mel: bool = False):
+        """Host frontend + frame budget + :meth:`_fused_device` → (handle,
+        deficit, frame bucket). Nothing waits for the device."""
+        ids_np, lengths_np = self._encode_texts(texts)
+        t_bucket = self._fused_frame_budget(lengths_np)
+        disp, deficit = self._fused_device(ids_np, lengths_np, t_bucket,
+                                           seed_int, temperature, pcm16,
+                                           return_mel)
+        return disp, deficit, t_bucket
+
+    @torch.inference_mode()
+    def _batched_dispatch(
+        self,
+        texts: Sequence[str],
+        seed: Optional[int] = None,
+        temperature: float = 1.0,
+        pcm16: bool = False,
+        return_mel: bool = False,
+    ) -> _Dispatch:
+        """The two-stage batched path without the copy to the host: returns
+        a handle for :meth:`_batched_collect`. The serving batcher
+        dispatches slice N+1 before it collects slice N;
+        ``synthesize(fused=False)`` is dispatch and collect back to back.
+
+        Stage A's predicted frame total is read on the host to pick the
+        frame bucket, which waits for the work queued before it on the
+        stream; stage B is then queued and not waited for."""
+        enc, frames, t_bucket = self._run_stage_a(texts)
+        return self._stage_b(enc, frames, t_bucket, self._next_seed(seed),
+                             temperature, pcm16, len(texts), return_mel)
+
+    def _fetch_rows(self, disp: _Dispatch):
+        """One device→host copy of the batch, trimmed to each row's frame
+        count × hop → (waveforms, mels or None)."""
         hop = self.config.hifigan.total_upsample
-        n_np = n_frames.cpu().numpy().astype(np.int64)
-        audio_np = audio.cpu().numpy()
-        audio_np = audio_np.astype(np.int16 if pcm16 else np.float32,
+        n_np = disp.n_frames.cpu().numpy().astype(np.int64)
+        audio_np = disp.audio.cpu().numpy()
+        audio_np = audio_np.astype(np.int16 if disp.pcm16 else np.float32,
                                    copy=False)
-        outs = [a[: int(k) * hop] for a, k in zip(audio_np[:n], n_np)]
+        outs = [a[: int(k) * hop] for a, k in zip(audio_np[:disp.n], n_np)]
         mels = None
-        if mel is not None:
-            mel_np = mel.cpu().numpy()
-            mels = [m[: int(k)] for m, k in zip(mel_np[:n], n_np)]
+        if disp.mel is not None:
+            mel_np = disp.mel.cpu().numpy()
+            mels = [m[: int(k)] for m, k in zip(mel_np[:disp.n], n_np)]
         return outs, mels
+
+    def _batched_collect(self, disp: _Dispatch) -> List[np.ndarray]:
+        """Copy a :meth:`_batched_dispatch` handle to the host and trim →
+        list of 1-D waveforms (row order preserved)."""
+        return self._fetch_rows(disp)[0]
 
     @torch.inference_mode()
     def synthesize(
@@ -457,33 +661,23 @@ class TTSPipeline:
         seed_int = self._next_seed(seed)
 
         if fused:
-            ids_np, lengths_np = self._encode_texts(texts)
-            t_bucket = self._fused_frame_budget(lengths_np)
-            ids, lengths = self._to_device(ids_np, lengths_np)
-            enc, frames, _ = self._stage_a(ids, lengths)
-            frames, deficit = self._compress(frames, t_bucket)
-            mel, n_frames = self._acoustic(enc, frames, seed_int, t_bucket,
-                                           temperature)
+            disp, deficit, t_bucket = self._fused_dispatch(
+                texts, seed_int, temperature, pcm16, return_mel)
+        else:
+            disp = self._batched_dispatch(texts, seed_int, temperature,
+                                          pcm16, return_mel)
+        outs, mels = self._fetch_rows(disp)
+
+        if fused:
             deficit_np = deficit.cpu().numpy()
             self._count_overflows(deficit_np)
-        else:
-            enc, frames, t_bucket = self._run_stage_a(texts)
-            mel, n_frames = self._acoustic(enc, frames, seed_int, t_bucket,
-                                           temperature)
-            deficit_np = None
-        audio = self._maybe_pcm16(self._vocode_device(mel), pcm16)
-        outs, mels = self._fetch_rows(audio, n_frames,
-                                      mel if return_mel else None, pcm16,
-                                      len(texts))
-
-        if deficit_np is not None:
             redo = self._overflow_fallback_rows(deficit_np, t_bucket)
             if redo:
                 logger.info("re-synthesizing %d over-compressed row(s) on "
                             "the two-stage path", len(redo))
-                r_outs, r_mels = self._two_stage_rows(
+                r_outs, r_mels = self._fetch_rows(self._batched_dispatch(
                     [texts[i] for i in redo], seed_int, temperature, pcm16,
-                    return_mel)
+                    return_mel))
                 for j, i in enumerate(redo):
                     outs[i] = r_outs[j]
                     if mels is not None:
@@ -491,17 +685,6 @@ class TTSPipeline:
         if return_mel:
             return (outs[0], mels[0]) if single else (outs, mels)
         return outs[0] if single else outs
-
-    def _two_stage_rows(self, texts, seed_int, temperature, pcm16,
-                        return_mel):
-        """Two-stage synthesis of a row subset (the overflow redo)."""
-        enc, frames, t_bucket = self._run_stage_a(texts)
-        mel, n_frames = self._acoustic(enc, frames, seed_int, t_bucket,
-                                       temperature)
-        audio = self._maybe_pcm16(self._vocode_device(mel), pcm16)
-        return self._fetch_rows(audio, n_frames,
-                                mel if return_mel else None, pcm16,
-                                len(texts))
 
     @torch.inference_mode()
     def synthesize_mel(
@@ -521,18 +704,290 @@ class TTSPipeline:
         outs = [m[: int(k)] for m, k in zip(mel_np, n_np)]
         return outs[0] if single else outs
 
+    def _mel_tensor(self, mel) -> torch.Tensor:
+        """numpy or tensor mel → float32 tensor on the device."""
+        if not isinstance(mel, torch.Tensor):
+            mel = torch.from_numpy(np.asarray(mel, np.float32))
+        return mel.to(self.device, torch.float32)
+
     @torch.inference_mode()
     def vocode(self, mel) -> np.ndarray:
         """Log-mel → waveform (numpy f32). Accepts time-major [T, n_mels]
         / [B, T, n_mels] or reference layout [n_mels, T] / [B, n_mels, T],
         as numpy or as a tensor; a tensor already on the device stays
         there."""
-        if not isinstance(mel, torch.Tensor):
-            mel = torch.from_numpy(np.asarray(mel, np.float32))
-        mel = mel.to(self.device, torch.float32)
+        mel = self._mel_tensor(mel)
         squeeze = mel.ndim == 2
         if squeeze:
             mel = mel[None]
         mel = mel_time_major(mel, self.config.hifigan.in_channels)
         audio = self._vocode_device(mel.contiguous()).cpu().numpy()
         return audio[0] if squeeze else audio
+
+    @torch.inference_mode()
+    def vocode_streaming(
+        self,
+        mel,
+        chunk_frames: int = 256,
+        context_frames: Optional[int] = None,
+        pcm16: bool = False,
+    ):
+        """Log-mel → waveform as a stream of chunks, O(chunk) device memory.
+
+        Yields ``chunk_frames × hop`` samples at a time (the last chunk
+        shorter). Each chunk is vocoded from a window carrying
+        ``context_frames`` of real context per side (default: the
+        generator's receptive-field radius, :func:`receptive_radius_frames`),
+        and windows touching the true mel boundaries align to them so the
+        layer zero-padding matches the full pass. The network is fully
+        convolutional, so the concatenation equals :meth:`vocode` of the
+        whole mel up to float rounding: cuDNN on the card (oneDNN on the
+        CPU) may choose other convolution algorithms for the window shape
+        than for the full shape. Every window has one shape.
+
+        Takes one mel, time-major ``[T, n_mels]`` or reference layout
+        ``[n_mels, T]``, numpy or tensor; yields nothing for ``T == 0``.
+        ``pcm16`` quantizes on the device and halves the copy to the host,
+        as in :meth:`synthesize`.
+        """
+        mel = self._mel_tensor(mel)
+        if mel.ndim != 2:
+            raise ValueError("vocode_streaming takes one [T, n_mels] mel")
+        mel = mel_time_major(mel, self.config.hifigan.in_channels)
+        t = mel.shape[0]
+        if t == 0:
+            return
+        up = self.config.hifigan.total_upsample
+        if context_frames is None:
+            context_frames = receptive_radius_frames(self.config.hifigan)
+        window = chunk_frames + 2 * context_frames
+        if t <= window:
+            # Too short to split: one exact whole-mel call.
+            audio = self.vocode(mel)
+            yield host_pcm16(audio) if pcm16 else audio
+            return
+        mel = mel.contiguous()
+        chunk_samples = chunk_frames * up
+        for a, b, w0, start_f, start_cl_f in iter_stream_windows(
+                t, chunk_frames, context_frames):
+            block = self._vocode_window(mel[None, w0:w0 + window],
+                                        start_cl_f * up, chunk_samples,
+                                        pcm16)
+            block_np = block.cpu().numpy()[0]
+            off = (start_f - start_cl_f) * up
+            yield block_np[off:off + (b - a) * up]
+
+    # ------------------------------------------------------------------
+    # long text
+    # ------------------------------------------------------------------
+
+    def _chunk_long_text(self, text: str, max_phonemes: int) -> list:
+        """Sentence-pack ``text`` into chunks of at most ``max_phonemes``
+        ids (``text/frontend.py:chunk_text_by_phonemes``)."""
+        return chunk_text_by_phonemes(self.text_processor, self.vocab, text,
+                                      max_phonemes)
+
+    def synthesize_long(
+        self,
+        text: str,
+        seed: Optional[int] = None,
+        temperature: float = 1.0,
+        gap_ms: float = 120.0,
+        max_phonemes: Optional[int] = None,
+    ) -> np.ndarray:
+        """Long text → one waveform, without bucket truncation.
+
+        ``synthesize`` truncates input past the largest phoneme bucket
+        (with a warning); this splits the text at sentence boundaries (word
+        boundaries as a last resort), synthesizes the chunks as one
+        two-stage batch and joins them with ``gap_ms`` of silence. One
+        chunk takes :meth:`synthesize` unchanged."""
+        if max_phonemes is None:
+            max_phonemes = self.phoneme_buckets[-1]
+        chunks = self._chunk_long_text(text, max_phonemes)
+        if not chunks:
+            return np.zeros(0, np.float32)
+        if len(chunks) == 1:
+            return self.synthesize(chunks[0], seed=seed,
+                                   temperature=temperature)
+        outs = self.synthesize(chunks, seed=seed, temperature=temperature,
+                               fused=False)
+        return self.join_chunks(outs, gap_ms=gap_ms)
+
+    def join_chunks(self, outs: Sequence[np.ndarray],
+                    gap_ms: float = 120.0) -> np.ndarray:
+        """Concatenate chunk waveforms with ``gap_ms`` of silence between
+        them (``data.audio_io.join_wave_chunks``, shared with the serving
+        batcher)."""
+        return join_wave_chunks(outs, gap_ms, self.config.audio.sample_rate)
+
+    @torch.inference_mode()
+    def stream(
+        self,
+        text: str,
+        seed: Optional[int] = None,
+        temperature: float = 1.0,
+        gap_ms: float = 120.0,
+        max_phonemes: Optional[int] = None,
+        pcm16: bool = False,
+        vocode_chunk_frames: Optional[int] = None,
+    ):
+        """Incremental synthesis: yields waveform pieces (sentence chunks
+        interleaved with ``gap_ms`` of silence) as they are computed.
+
+        The library twin of the HTTP ``/synthesize_stream`` endpoint
+        (``serve/server.py``). Chunk i gets seed ``seed + i`` on the fused
+        path, so each chunk is reproducible alone. The first chunk is
+        collected before anything else is dispatched, so time to first
+        audio is one chunk's; from the second chunk on, chunk i+1 is
+        dispatched before chunk i is copied to the host. A lookahead that
+        fails still yields the chunk already computed, then raises.
+
+        ``vocode_chunk_frames`` streams within each sentence too: the
+        acoustic model makes the sentence's mel, then audio flows in
+        pieces of that many frames through :meth:`vocode_streaming`.
+        """
+        if max_phonemes is None:
+            max_phonemes = self.phoneme_buckets[-1]
+        chunks = self._chunk_long_text(text, max_phonemes)
+        if not chunks:
+            return
+        base = None if seed is None else int(seed)
+        gap = np.zeros(
+            int(round(gap_ms / 1000.0 * self.config.audio.sample_rate)),
+            np.int16 if pcm16 else np.float32)
+
+        def chunk_seed(i):
+            return self._next_seed(None if base is None else base + i)
+
+        if vocode_chunk_frames is not None:
+            for i, chunk in enumerate(chunks):
+                if i:
+                    yield gap
+                mel = self.synthesize_mel(chunk, seed=chunk_seed(i),
+                                          temperature=temperature)
+                yield from self.vocode_streaming(
+                    mel, chunk_frames=vocode_chunk_frames, pcm16=pcm16)
+            return
+
+        def dispatch(i):
+            disp, deficit, _ = self._fused_dispatch(
+                [chunks[i]], chunk_seed(i), temperature, pcm16)
+            return disp, deficit
+
+        def collect(handle):
+            disp, deficit = handle
+            outs, _ = self._fetch_rows(disp)
+            self._count_overflows(deficit.cpu().numpy())
+            return outs[0]
+
+        yield collect(dispatch(0))  # time to first audio: chunk 0 alone
+        pending = None
+        err = None
+        for i in range(1, len(chunks)):
+            try:
+                nxt = dispatch(i)
+            except Exception as e:  # noqa: BLE001 — flush finished audio
+                err = e
+                break
+            if pending is not None:
+                yield gap
+                yield collect(pending)
+            pending = nxt
+        if pending is not None:
+            yield gap
+            yield collect(pending)
+        if err is not None:
+            raise err
+
+    def synthesize_to_file(self, text: str, path: Union[str, Path],
+                           seed: Optional[int] = None) -> np.ndarray:
+        """:meth:`synthesize_long` written to a PCM16 WAV at ``path``."""
+        audio = self.synthesize_long(text, seed=seed)
+        write_wav(path, audio, self.config.audio.sample_rate)
+        return audio
+
+    # ------------------------------------------------------------------
+    # warmup
+    # ------------------------------------------------------------------
+
+    def fused_bucket_pairs(self, max_phonemes: Optional[int] = None) -> list:
+        """Every (phoneme-bucket, frame-bucket) pair the fused path can
+        resolve to for utterances of up to ``max_phonemes`` ids, found by
+        walking every length through :meth:`_fused_frame_budget`."""
+        max_p = max_phonemes or self.phoneme_buckets[-1]
+        pairs = set()
+        for length in range(1, max_p + 1):
+            p_bucket = pick_bucket(length, self.phoneme_buckets)
+            t_bucket = self._fused_frame_budget(np.asarray([length]))
+            pairs.add((p_bucket, t_bucket))
+        return sorted(pairs)
+
+    @torch.inference_mode()
+    def warmup_fused(
+        self,
+        max_phonemes: Optional[int] = None,
+        pcm16: bool = False,
+        temperature: float = 1.0,
+        batch_sizes: Sequence[int] = (1,),
+    ) -> int:
+        """Run every fused-path shape once, at the given batch sizes, before
+        traffic. Returns the number of shapes run.
+
+        There is no compile step here as there is in the JAX package. What
+        a first call of a new shape pays on the card is cuDNN's choice and
+        set-up of each convolution's execution plan for that shape, and the
+        caching allocator growing to the shape's working set; running each
+        (batch, phoneme-bucket, frame-bucket) shape once on synthetic ids
+        moves both out of the first live request of that shape. PyTorch
+        keeps those plans per thread, so run the warmup on the thread that
+        will serve (``DynamicBatcher.start`` does). (TF32 and
+        ``cudnn.benchmark`` stay off: ``runtime.pin_f32_math``.)
+
+        ``batch_sizes`` defaults to ``(1,)``: the serving batcher sends only
+        single-utterance groups down the fused path."""
+        pairs = self.fused_bucket_pairs(max_phonemes)
+        for b in batch_sizes:
+            for p_bucket, t_bucket in pairs:
+                ids_np = np.full((b, p_bucket), self.vocab.pad_id, np.int64)
+                lengths_np = np.full((b,), p_bucket, np.int64)
+                self._fused_device(ids_np, lengths_np, t_bucket,
+                                   self._next_seed(0), temperature, pcm16)
+                self._sync()
+        return len(pairs) * len(batch_sizes)
+
+    @torch.inference_mode()
+    def warmup_batched(
+        self,
+        batch_sizes: Sequence[int],
+        pcm16: bool = False,
+        temperature: float = 1.0,
+        max_frames_per_phoneme: int = 24,
+    ) -> int:
+        """Run the two-stage path's shapes once before traffic (what that
+        does on the card: :meth:`warmup_fused`). Returns the count.
+
+        Stage A runs at every (batch, phoneme-bucket); stage B at every
+        (batch, phoneme-bucket, frame-bucket) whose frame bucket is
+        plausibly reachable, T ≤ P × ``max_frames_per_phoneme``. The
+        smallest frame bucket is always reachable (short predictions clamp
+        up to it), so it is never skipped."""
+        n = 0
+        for b in batch_sizes:
+            stage_a_out = {}
+            for p_bucket in self.phoneme_buckets:
+                ids_np = np.full((b, p_bucket), self.vocab.pad_id, np.int64)
+                lengths_np = np.full((b,), p_bucket, np.int64)
+                enc, frames, _ = self._stage_a(
+                    *self._to_device(ids_np, lengths_np))
+                stage_a_out[p_bucket] = (enc, frames)
+                n += 1
+            for p_bucket, (enc, frames) in stage_a_out.items():
+                for i, t_bucket in enumerate(self.frame_buckets):
+                    if i and t_bucket > p_bucket * max_frames_per_phoneme:
+                        break
+                    self._stage_b(enc, frames, t_bucket, self._next_seed(0),
+                                  temperature, pcm16, b)
+                    self._sync()
+                    n += 1
+        return n
