@@ -49,12 +49,31 @@ every kernel against its plain PyTorch version:
    ``vocode_streaming`` (64-frame chunks) vs
    ``vocode`` on 700 frames (≤ 1e-5 of the peak, and the PCM16 variant),
    and ``save``/``load`` on the card (bitwise at temperature 0; ``half``
-   within 1e-2 of the peak). The server stops in a ``finally``.
+   within 1e-2 of the peak). The server stops in a ``finally``;
+8. ahead-of-time serving at full width (phase 7's seeded, scaled weights):
+   ``export_pipeline`` on the card for batch (1, 8) × phoneme buckets
+   (16 … 128) and a 64-frame vocoder window into a temporary directory;
+   ``AotPipeline`` loads the programs (no model code) and captures each as
+   a CUDA graph, the smallest first and the rest on a background thread;
+   every bucket's graph vs the live fused function at the bucket's frame
+   budget (≤ 1e-6 of the peak); ``AotPipeline.synthesize`` of one sentence
+   and of a batch of 3 vs the live fused ``synthesize`` (equal lengths;
+   ≤ 1e-6 of the peak for the sentence, ≤ 1e-5 for the batch, which runs
+   in the B=8 program); one request's latency,
+   live eager beside graph replay (and the replay's device time); a
+   bucket's first replay on a new thread; ``TTSServer`` over the artifact
+   (phase 7's bursts, stream and a seeded request, printed beside phase
+   7's); ``python -m iris_tts_tpu_torch.serve --aot`` in a child process
+   (boots, clamps the batch, answers one request bitwise as
+   ``AotPipeline.synthesize``, exits 0 on SIGINT); the window program vs
+   the live ``vocode_streaming`` (≤ 1e-6 of the peak). Both servers stop
+   in a ``finally``.
 
-Three paths drive the kernel, or not: synthesis (phases 3 and 4),
-training (phase 6) and serving (phase 7, which computes no log-mel: 0
-launches). Each path's launch counts are zeroed just before it and read
-just after, and a kernel of the path that was not launched fails the run.
+Four paths drive the kernel, or not: synthesis (phases 3 and 4),
+training (phase 6), serving (phase 7) and AOT serving (phase 8); the two
+serving paths compute no log-mel: 0 launches. Each path's launch counts
+are zeroed just before it and read just after, and a kernel of the path
+that was not launched fails the run.
 The last three lines are the card's name and power limit, a
 ``{"kernels": [...]}`` JSON line, and ``{"ok": true, "device": {...}}``.
 Any failed phase exits non-zero; so does a host without a CUDA device.
@@ -64,6 +83,7 @@ from __future__ import annotations
 
 import json
 import math
+import signal
 import statistics
 import subprocess
 import sys
@@ -110,6 +130,17 @@ SERVE_PHONEME_BUCKETS = (16, 32, 64, 128)
 SERVE_FRAME_BUCKETS = (128, 192, 256, 384, 512, 768, 1024, 1536)
 SERVE_BATCH_BUCKETS = (1, 2, 4, 8)
 BURST_ROUNDS = 3
+# Phase 8's grid: batch buckets x SERVE_PHONEME_BUCKETS, and the vocoder
+# window's chunk (the depth cut; widths stay full).
+AOT_BATCH_SIZES = (1, 8)
+AOT_WINDOW_CHUNK = 64
+# AotPipeline.synthesize vs the live fused synthesize, of the peak: one
+# sentence runs at the live path's batch of 1; a batch of 3 runs in the
+# B=8 program, where cuDNN picks other convolution algorithms than for the
+# live path's B=3 (2.2e-6 measured on the H100; at equal shapes the graphs
+# are bitwise equal to the live function).
+AOT_LIVE_LIMIT = 1e-6
+AOT_PADDED_BATCH_LIMIT = 1e-5
 # The loss each stage's fixed-batch check follows.
 STAGE_LOSS = {"duration": "duration_loss", "vae": "total",
               "postnet": "postnet_l1", "gan": "gen_mel_l1"}
@@ -571,30 +602,134 @@ def _pct(values, p):
     return v[min(len(v) - 1, int(p * len(v)))]
 
 
-def phase7_serving(dev, card: str) -> int:
-    """Serving on the card (see the module docstring). Returns the log-mel
-    kernel's launches on this path (serving computes no log-mel)."""
+def _bursts_and_stream(server, label: str, card: str) -> dict:
+    """BURST_ROUNDS bursts of 16 ``POST /synthesize`` from 8 client threads
+    (every WAV checked), then one ``POST /synthesize_stream`` of the long
+    text read chunk by chunk; prints both and returns their numbers."""
     import http.client
     import threading
 
     import numpy as np
 
-    from iris_tts_tpu_torch import IrisConfig
-    from iris_tts_tpu_torch.models.hifigan import receptive_radius_frames
-    from iris_tts_tpu_torch.models.pipeline import TTSPipeline, host_pcm16
-    from iris_tts_tpu_torch.ops import mel_cuda
-    from iris_tts_tpu_torch.serve import TTSServer
+    host, port = server.address[:2]
+    sr = server.batcher._pipe.config.audio.sample_rate
+    hop = server.batcher._pipe.config.hifigan.total_upsample
+    gap = int(round(server.batcher._gap_ms / 1000.0 * sr))
+    n_chunks = {t: len(server.batcher.chunk_text(t)) for t in SERVE_TEXTS}
+    three = SERVE_TEXTS[-1]
+    check(n_chunks[three] >= 2, f"the long text streams in "
+                                f"{n_chunks[three]} chunks")
 
-    mel_cuda.log_mel_cuda.launches = 0
+    # a burst of 16 requests from 8 client threads, three times: with 16
+    # requests a round's p95 is its maximum, so each round is printed and
+    # the 48 latencies are also pooled
+    jobs = [SERVE_TEXTS[i % len(SERVE_TEXTS)] for i in range(16)]
+    pooled, rounds, xrt = [], [], []
+    for rnd in range(BURST_ROUNDS):
+        results = [None] * len(jobs)
+        errors = []
+
+        def client(k):
+            try:
+                for i in range(k, len(jobs), 8):
+                    results[i] = _post(host, port, "/synthesize",
+                                       {"text": jobs[i]})
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(8)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        burst_s = time.perf_counter() - t0
+        check(not errors and not any(t.is_alive() for t in threads),
+              f"burst clients finished ({errors})")
+        audio_s = 0.0
+        for text, (status, headers, body, _) in zip(jobs, results):
+            check(status == 200 and headers.get("Content-Type") ==
+                  "audio/wav", f"burst status {status}")
+            rate, pcm = _wav_pcm(body)
+            check(rate == sr, f"WAV rate {rate}")
+            n = n_chunks[text]
+            check(len(pcm) > 0 and (len(pcm) - (n - 1) * gap) % hop == 0,
+                  f"WAV length {len(pcm)} = chunks x {hop} + gaps")
+            check(bool(np.isfinite(pcm.astype(np.float32)).all()),
+                  "WAV samples finite")
+            check(int(np.abs(pcm).max()) > 0, "WAV not silent")
+            audio_s += len(pcm) / sr
+        lats = [r[3] * 1e3 for r in results]
+        pooled += lats
+        xrt.append(audio_s / burst_s)
+        rounds.append(f"round {rnd + 1}: {burst_s:.3f} s, "
+                      f"{audio_s / burst_s:.1f}x realtime, p50 "
+                      f"{_pct(lats, 0.5):.2f} ms, max {max(lats):.2f} ms")
+    st = server.batcher.stats()
+    print(f"{label} burst: {BURST_ROUNDS} rounds of {len(jobs)} POST "
+          f"/synthesize from 8 client threads ({audio_s:.2f} s of audio "
+          f"a round); " + "; ".join(rounds) + f"; all "
+          f"{len(pooled)} client latencies p50 {_pct(pooled, 0.5):.2f} "
+          f"ms, p95 {_pct(pooled, 0.95):.2f} ms, max {max(pooled):.2f} "
+          f"ms; batch_size_hist (all rounds) {st['batch_size_hist']}, "
+          f"mean_batch_size {st['mean_batch_size']:.3f}, server "
+          f"latency_ms {st['latency_ms']} ({card})", flush=True)
+
+    # one stream, read chunk by chunk
+    conn = http.client.HTTPConnection(host, port, timeout=300)
+    t0 = time.perf_counter()
+    conn.request("POST", "/synthesize_stream",
+                 body=json.dumps({"text": three}),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    check(resp.status == 200, f"stream status {resp.status}")
+    pieces, ttfa_ms = [], None
+    while True:
+        size = int(resp.fp.readline().strip(), 16)
+        if size == 0:
+            resp.fp.readline()
+            break
+        pieces.append(np.frombuffer(resp.fp.read(size), "<i2"))
+        resp.fp.readline()
+        if ttfa_ms is None:
+            ttfa_ms = (time.perf_counter() - t0) * 1e3
+    stream_ms = (time.perf_counter() - t0) * 1e3
+    conn.close()
+    n = n_chunks[three]
+    check(len(pieces) == 2 * n - 1, f"{len(pieces)} stream chunks for "
+                                    f"{n} sentence chunks")
+    audio = pieces[0::2]
+    check(all(len(a) > 0 and len(a) % hop == 0 for a in audio),
+          "stream chunk lengths = frames x hop")
+    check(all(len(g) == gap and not g.any() for g in pieces[1::2]),
+          "stream gaps are silence of the stated length")
+    total = sum(len(x) for x in pieces)
+    check(total == sum(len(a) for a in audio) + (n - 1) * gap,
+          "stream length = chunks + gaps")
+    print(f"{label} stream: {n} chunks, {total} samples; client time to "
+          f"first audio {ttfa_ms:.2f} ms, whole response "
+          f"{stream_ms:.2f} ms; server ttfa_ms "
+          f"{server.batcher.stats()['ttfa_ms']} ({card})", flush=True)
+    return {"p50": _pct(pooled, 0.5), "p95": _pct(pooled, 0.95),
+            "max": max(pooled), "xrt": xrt, "hist": st["batch_size_hist"],
+            "ttfa_ms": ttfa_ms, "stream_ms": stream_ms}
+
+
+def _serving_pipeline(dev, label: str):
+    """``IrisConfig()`` at full width with seeded random weights on the cut
+    serving ladders. Random HiFiGAN weights give rms ~6.5e-6, which PCM16
+    quantizes to zeros: the output conv is scaled so the peak lies near
+    0.5 and the PCM16 comparisons see real samples."""
+    import numpy as np
+
+    from iris_tts_tpu_torch import IrisConfig
+    from iris_tts_tpu_torch.models.pipeline import TTSPipeline
+
     t0 = time.perf_counter()
     pipe = TTSPipeline.initialize(IrisConfig(), seed=0, device=dev)
     pipe.phoneme_buckets = SERVE_PHONEME_BUCKETS
     pipe.frame_buckets = SERVE_FRAME_BUCKETS
-    hop = pipe.config.hifigan.total_upsample
-    sr = pipe.config.audio.sample_rate
-    # Random HiFiGAN weights give rms ~6.5e-6, which PCM16 quantizes to
-    # zeros: scale the output conv so the peak lies near 0.5 and the
-    # PCM16 comparisons below see real samples.
     probe = pipe.synthesize(SENTENCE, temperature=0.0)
     scale = 0.5 / float(np.abs(probe).max())
     with torch.no_grad():
@@ -602,11 +737,30 @@ def phase7_serving(dev, card: str) -> int:
         pipe.model.hifigan.conv_post.bias.mul_(scale)
     peak = float(np.abs(pipe.synthesize(SENTENCE, temperature=0.0)).max())
     check(0.3 < peak < 0.8, f"scaled peak {peak} near 0.5")
-    print(f"phase 7 pipeline: IrisConfig() at full width, seeded random "
-          f"weights, conv_post scaled x{scale:.4g} for all of phase 7 so "
+    print(f"{label} pipeline: IrisConfig() at full width, seeded random "
+          f"weights, conv_post scaled x{scale:.4g} for all of {label} so "
           f"the peak lies near 0.5 (now {peak:.3f}; unscaled random weights "
           f"quantize to PCM16 zeros), built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return pipe
+
+
+def phase7_serving(dev, card: str):
+    """Serving on the card (see the module docstring). Returns the log-mel
+    kernel's launches on this path (serving computes no log-mel) and the
+    numbers phase 8 prints beside its own."""
+    import threading
+
+    import numpy as np
+
+    from iris_tts_tpu_torch.models.hifigan import receptive_radius_frames
+    from iris_tts_tpu_torch.models.pipeline import TTSPipeline, host_pcm16
+    from iris_tts_tpu_torch.ops import mel_cuda
+    from iris_tts_tpu_torch.serve import TTSServer
+
+    mel_cuda.log_mel_cuda.launches = 0
+    pipe = _serving_pipeline(dev, "phase 7")
+    hop = pipe.config.hifigan.total_upsample
 
     # 1. warmup on the batcher's device thread, on the cut ladders
     print(f"phase 7 depth cut: phoneme buckets {pipe.phoneme_buckets} (of "
@@ -627,102 +781,8 @@ def phase7_serving(dev, card: str) -> int:
               f"fused and {n_warmed - n_fused} two-stage shapes in "
               f"{server.batcher.warmup_s:.2f} s ({card})", flush=True)
         host, port = server.address[:2]
-        gap = int(round(server.batcher._gap_ms / 1000.0 * sr))
-        n_chunks = {t: len(server.batcher.chunk_text(t)) for t in SERVE_TEXTS}
+        served_7 = _bursts_and_stream(server, "phase 7", card)
         three = SERVE_TEXTS[-1]
-        check(n_chunks[three] >= 2, f"the long text streams in "
-                                    f"{n_chunks[three]} chunks")
-
-        # 2. a burst of 16 requests from 8 client threads, three times:
-        # with 16 requests a round's p95 is its maximum, so each round is
-        # printed and the 48 latencies are also pooled
-        jobs = [SERVE_TEXTS[i % len(SERVE_TEXTS)] for i in range(16)]
-        pooled, rounds = [], []
-        for rnd in range(BURST_ROUNDS):
-            results = [None] * len(jobs)
-            errors = []
-
-            def client(k):
-                try:
-                    for i in range(k, len(jobs), 8):
-                        results[i] = _post(host, port, "/synthesize",
-                                           {"text": jobs[i]})
-                except Exception as e:  # noqa: BLE001 — reported below
-                    errors.append(repr(e))
-
-            threads = [threading.Thread(target=client, args=(k,))
-                       for k in range(8)]
-            t0 = time.perf_counter()
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(timeout=300)
-            burst_s = time.perf_counter() - t0
-            check(not errors and not any(t.is_alive() for t in threads),
-                  f"burst clients finished ({errors})")
-            audio_s = 0.0
-            for text, (status, headers, body, _) in zip(jobs, results):
-                check(status == 200 and headers.get("Content-Type") ==
-                      "audio/wav", f"burst status {status}")
-                rate, pcm = _wav_pcm(body)
-                check(rate == sr, f"WAV rate {rate}")
-                n = n_chunks[text]
-                check(len(pcm) > 0 and (len(pcm) - (n - 1) * gap) % hop == 0,
-                      f"WAV length {len(pcm)} = chunks x {hop} + gaps")
-                check(bool(np.isfinite(pcm.astype(np.float32)).all()),
-                      "WAV samples finite")
-                check(int(np.abs(pcm).max()) > 0, "WAV not silent")
-                audio_s += len(pcm) / sr
-            lats = [r[3] * 1e3 for r in results]
-            pooled += lats
-            rounds.append(f"round {rnd + 1}: {burst_s:.3f} s, "
-                          f"{audio_s / burst_s:.1f}x realtime, p50 "
-                          f"{_pct(lats, 0.5):.2f} ms, max {max(lats):.2f} ms")
-        st = server.batcher.stats()
-        print(f"phase 7 burst: {BURST_ROUNDS} rounds of {len(jobs)} POST "
-              f"/synthesize from 8 client threads ({audio_s:.2f} s of audio "
-              f"a round); " + "; ".join(rounds) + f"; all "
-              f"{len(pooled)} client latencies p50 {_pct(pooled, 0.5):.2f} "
-              f"ms, p95 {_pct(pooled, 0.95):.2f} ms, max {max(pooled):.2f} "
-              f"ms; batch_size_hist (all rounds) {st['batch_size_hist']}, "
-              f"mean_batch_size {st['mean_batch_size']:.3f}, server "
-              f"latency_ms {st['latency_ms']} ({card})", flush=True)
-
-        # 3. one stream, read chunk by chunk
-        conn = http.client.HTTPConnection(host, port, timeout=300)
-        t0 = time.perf_counter()
-        conn.request("POST", "/synthesize_stream",
-                     body=json.dumps({"text": three}),
-                     headers={"Content-Type": "application/json"})
-        resp = conn.getresponse()
-        check(resp.status == 200, f"stream status {resp.status}")
-        pieces, ttfa_ms = [], None
-        while True:
-            size = int(resp.fp.readline().strip(), 16)
-            if size == 0:
-                resp.fp.readline()
-                break
-            pieces.append(np.frombuffer(resp.fp.read(size), "<i2"))
-            resp.fp.readline()
-            if ttfa_ms is None:
-                ttfa_ms = (time.perf_counter() - t0) * 1e3
-        stream_ms = (time.perf_counter() - t0) * 1e3
-        conn.close()
-        n = n_chunks[three]
-        check(len(pieces) == 2 * n - 1, f"{len(pieces)} stream chunks for "
-                                        f"{n} sentence chunks")
-        audio = pieces[0::2]
-        check(all(len(a) > 0 and len(a) % hop == 0 for a in audio),
-              "stream chunk lengths = frames x hop")
-        check(all(len(g) == gap and not g.any() for g in pieces[1::2]),
-              "stream gaps are silence of the stated length")
-        total = sum(len(x) for x in pieces)
-        check(total == sum(len(a) for a in audio) + (n - 1) * gap,
-              "stream length = chunks + gaps")
-        print(f"phase 7 stream: {n} chunks, {total} samples; client time to "
-              f"first audio {ttfa_ms:.2f} ms, whole response "
-              f"{stream_ms:.2f} ms; server ttfa_ms "
-              f"{server.batcher.stats()['ttfa_ms']} ({card})", flush=True)
 
         # the stream's first chunk alone through the server (fused path)
         first = pipe._chunk_long_text(three, pipe.phoneme_buckets[-1])[0]
@@ -875,6 +935,299 @@ def phase7_serving(dev, card: str) -> int:
         print(f"phase 7 save/load on the card: temperature 0 bitwise equal "
               f"{same}; half=True max-abs {h_err:.3e} = "
               f"{h_err / w_peak:.3e} of the peak", flush=True)
+    finally:
+        tmp.cleanup()
+    return mel_cuda.log_mel_cuda.launches, dict(
+        served_7, win_ms=win_ms, thread_warm_ms=warm_ms, thread_cold_ms=cold)
+
+
+def phase8_aot(dev, card: str, ref=None) -> int:
+    """Ahead-of-time serving at full width (see the module docstring):
+    export, load, per-bucket CUDA graphs, parity with the live path,
+    latency, the HTTP server over the artifact and the window program.
+    ``ref`` is phase 7's numbers from the same run, printed beside these.
+    Returns the log-mel kernel's launches on this path."""
+    import threading
+
+    import numpy as np
+
+    from iris_tts_tpu_torch.models.pipeline import host_pcm16, prior_noise
+    from iris_tts_tpu_torch.ops import mel_cuda
+    from iris_tts_tpu_torch.serve import TTSServer
+    from iris_tts_tpu_torch.serve.export import AotPipeline, export_pipeline
+
+    ref = ref or {}
+    mel_cuda.log_mel_cuda.launches = 0
+    pipe = _serving_pipeline(dev, "phase 8")
+    cfg = pipe.config
+    hop = cfg.hifigan.total_upsample
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_aot_")
+    try:
+        # export on the card, then load: no model code is built
+        root = Path(tmp.name)
+        t0 = time.perf_counter()
+        export_pipeline(pipe, root, batch_sizes=AOT_BATCH_SIZES,
+                        phoneme_buckets=SERVE_PHONEME_BUCKETS,
+                        vocode_chunk_frames=AOT_WINDOW_CHUNK)
+        export_s = time.perf_counter() - t0
+        manifest = json.loads((root / "manifest.json").read_text())
+        sizes = {e["file"]: e["bytes"] for e in manifest["entries"]}
+        sizes[manifest["vocode_window"]["file"]] = \
+            manifest["vocode_window"]["bytes"]
+        print(f"phase 8 export: {len(sizes)} programs (batch "
+              f"{AOT_BATCH_SIZES} x phoneme {SERVE_PHONEME_BUCKETS}, frame "
+              f"budgets {sorted({e['frame_bucket'] for e in manifest['entries']})}"
+              f", and a {AOT_WINDOW_CHUNK}-frame vocoder window) in "
+              f"{export_s:.1f} s; bytes "
+              + ", ".join(f"{k} {v}" for k, v in sizes.items())
+              + f"; total {sum(sizes.values()) / 1e6:.1f} MB", flush=True)
+        t0 = time.perf_counter()
+        aot = AotPipeline(root, text_processor=pipe.text_processor,
+                          device=dev)
+        load_s = time.perf_counter() - t0
+
+        # 1. progressive warmup: the smallest bucket here, the rest behind
+        t0 = time.perf_counter()
+        n_first = aot.warmup(block=False)
+        first_s = time.perf_counter() - t0
+        while not aot.warm_all_done():
+            check(time.perf_counter() - t0 < 600, "background capture done")
+            time.sleep(0.01)
+        all_s = time.perf_counter() - t0
+        check(n_first == 1 and not aot.warmup_errors,
+              f"warmup: {n_first} first, errors {aot.warmup_errors}")
+        check(len(aot._ready) == len(aot._programs) and all(
+            p.graph is not None for p in aot._programs.values()),
+            "every program captured as a CUDA graph")
+        pool = aot.graph_pool_bytes()
+        print(f"phase 8 load + warmup: load {load_s:.2f} s; warmup("
+              f"block=False): first bucket live after {first_s:.3f} s, all "
+              f"{len(aot._programs)} graphs after {all_s:.3f} s; graph pool "
+              f"reserved "
+              + ("not measured" if pool is None else f"{pool / 2**20:.1f} MiB")
+              + f", card memory reserved "
+              f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB ({card})",
+              flush=True)
+
+        # 2. every bucket's graph against the live fused function at the
+        # bucket's own frame budget, same noise, temperature 0.667
+        worst = 0.0
+        texts = SERVE_TEXTS[:-1]
+        for (b, p), prog in sorted((k, v) for k, v in aot._programs.items()
+                                   if k != "vocwin"):
+            entry = aot._entries[(b, p)]
+            t_frames = entry["frame_bucket"]
+            id_lists = [pipe._text_to_ids_cached(texts[i % len(texts)])[:p]
+                        for i in range(b)]
+            ids = np.full((b, p), pipe.vocab.pad_id, np.int64)
+            lengths = np.array([len(x) for x in id_lists], np.int64)
+            for row, x in zip(ids, id_lists):
+                row[:len(x)] = x
+            eps = prior_noise(b, cfg.vae.latent_dim, t_frames,
+                              cfg.vae.down_factor, 77, dev)
+            with torch.inference_mode():
+                live, _ = pipe._fused_device(ids, lengths, t_frames, 77,
+                                             0.667, False)
+                live_audio = live.audio.cpu().numpy()
+            with aot._lock:
+                ids_t, len_t, eps_t, temp_t = prog.inputs
+                ids_t.copy_(torch.from_numpy(ids))
+                len_t.copy_(torch.from_numpy(lengths))
+                eps_t.copy_(eps)
+                temp_t.fill_(0.667)
+                got = prog.run()[0].cpu().numpy()
+            err = float(np.abs(got.astype(np.float64) - live_audio).max())
+            rel = err / float(np.abs(live_audio).max())
+            worst = max(worst, rel)
+            check(rel <= 1e-6, f"bucket ({b}, {p}) graph vs live {rel} <= "
+                               "1e-6 of the peak")
+        print(f"phase 8 buckets: each of the {len(aot._entries)} graphs vs "
+              f"the live fused function at its own frame budget (same "
+              f"noise, temperature 0.667): worst {worst:.3e} of the peak",
+              flush=True)
+
+        # 3. AotPipeline.synthesize against the live fused synthesize
+        batch3 = [SERVE_TEXTS[4], SERVE_TEXTS[1], SERVE_TEXTS[6]]
+        got1 = aot.synthesize(SENTENCE, seed=11)
+        want1 = pipe.synthesize(SENTENCE, seed=11, fused=True)
+        gotb = aot.synthesize(batch3, seed=12)
+        wantb = pipe.synthesize(batch3, seed=12, fused=True)
+        errs = []
+        for g, w in zip([got1] + gotb, [want1] + wantb):
+            check(len(g) == len(w) and len(g) > 0,
+                  f"AOT vs live lengths {len(g)} vs {len(w)}")
+            errs.append(float(np.abs(g.astype(np.float64) - w).max())
+                        / float(np.abs(w).max()))
+        n_live = len(pipe._text_to_ids_cached(SENTENCE))
+        print(f"phase 8 AotPipeline.synthesize vs live synthesize(fused="
+              f"True), temperature 1: one sentence ({n_live} phonemes, "
+              f"frame budget {pipe._fused_frame_budget(np.asarray([n_live]))}"
+              f" live vs {aot._entries[(1, 64)]['frame_bucket']} in the "
+              f"bucket) {errs[0]:.3e} of the peak; batch of 3 (bucket 8) "
+              + ", ".join(f"{e:.3e}" for e in errs[1:]), flush=True)
+        check(errs[0] <= AOT_LIVE_LIMIT,
+              f"AOT vs live {errs[0]} <= {AOT_LIVE_LIMIT} of the peak")
+        check(max(errs[1:]) <= AOT_PADDED_BATCH_LIMIT,
+              f"AOT batch of 3 (B=8 program) vs live {max(errs[1:])} <= "
+              f"{AOT_PADDED_BATCH_LIMIT} of the peak")
+
+        # 4. one fused request: live eager vs graph replay
+        live_ms = time_host_ms(lambda: pipe.synthesize(SENTENCE, seed=1),
+                               reps=20)
+        aot_ms = time_host_ms(lambda: aot.synthesize(SENTENCE, seed=1),
+                              reps=20)
+        live2_ms = time_host_ms(lambda: pipe.synthesize(SENTENCE, seed=1),
+                                reps=20)
+        aot2_ms = time_host_ms(lambda: aot.synthesize(SENTENCE, seed=1),
+                               reps=20)
+        prog = aot._programs[(1, 64)]
+        with aot._lock:
+            replay_ms = time_cuda_ms(prog.run, reps=20, warmup=3,
+                                     graph=False)
+        print(f"phase 8 one fused request ({n_live} phonemes), host clock, "
+              f"median of 20: live eager synthesize {live_ms:.2f} / "
+              f"{live2_ms:.2f} ms, AotPipeline.synthesize (graph replay) "
+              f"{aot_ms:.2f} / {aot2_ms:.2f} ms; the bucket's replay alone "
+              f"{replay_ms:.3f} ms of device time (20 replays back to back "
+              f"between CUDA events; {card})", flush=True)
+        profile_line("phase 8 AotPipeline.synthesize (graph replay)",
+                     lambda: aot.synthesize(SENTENCE, seed=1), card)
+        profile_line("phase 8 live synthesize (eager), same request",
+                     lambda: pipe.synthesize(SENTENCE, seed=1), card)
+
+        # 5. a captured bucket's first replay on a new thread
+        first = aot._chunk_long_text(SERVE_TEXTS[-1],
+                                     aot.phoneme_buckets[-1])[0]
+        warm_ms = time_host_ms(lambda: aot.synthesize(first, seed=0))
+        cold = []
+
+        def run():
+            for _ in range(2):
+                t1 = time.perf_counter()
+                aot.synthesize(first, seed=0)
+                cold.append((time.perf_counter() - t1) * 1e3)
+
+        t = threading.Thread(target=run)
+        t.start()
+        t.join(timeout=300)
+        check(len(cold) == 2, "new-thread calls finished")
+        eager = (f"phase 7, eager, this run: warm {ref['thread_warm_ms']:.2f}"
+                 f" ms, new thread {ref['thread_cold_ms'][0]:.2f} / "
+                 f"{ref['thread_cold_ms'][1]:.2f} ms" if ref
+                 else "phase 7 not run")
+        print(f"phase 8 per-thread: the first stream chunk's bucket, warm "
+              f"here {warm_ms:.2f} ms (median of 5); on a new thread its "
+              f"first call {cold[0]:.2f} ms, second {cold[1]:.2f} ms "
+              f"({eager}; {card})", flush=True)
+
+        # 6. the HTTP server over the artifact
+        server = TTSServer(aot, host="127.0.0.1", port=0,
+                           max_batch=max(SERVE_BATCH_BUCKETS),
+                           max_wait_ms=5.0, pcm16_transfer=True)
+        try:
+            server.start()
+            served_8 = _bursts_and_stream(server, "phase 8", card)
+            host, port = server.address[:2]
+            seeded_text, seed = SERVE_TEXTS[5], 1234
+            status, _, body, _ = _post(host, port, "/synthesize",
+                                       {"text": seeded_text, "seed": seed})
+            check(status == 200, f"seeded status {status}")
+            served = _wav_pcm(body)[1]
+        finally:
+            server.stop()
+        check(not server.batcher.healthy(), "server stopped")
+        direct = aot.synthesize(seeded_text, seed=seed, pcm16=True)
+        check(np.array_equal(served, direct),
+              "seeded request through the server = AotPipeline.synthesize")
+        if ref:
+            print(f"phase 8 vs phase 7 (same run): pooled p50 "
+                  f"{served_8['p50']:.2f} vs {ref['p50']:.2f} ms, p95 "
+                  f"{served_8['p95']:.2f} vs {ref['p95']:.2f} ms, max "
+                  f"{served_8['max']:.2f} vs {ref['max']:.2f} ms; x realtime "
+                  + "/".join(f"{x:.1f}" for x in served_8["xrt"]) + " vs "
+                  + "/".join(f"{x:.1f}" for x in ref["xrt"])
+                  + f"; batch_size_hist {served_8['hist']} vs {ref['hist']};"
+                  f" stream time to first audio {served_8['ttfa_ms']:.2f} vs "
+                  f"{ref['ttfa_ms']:.2f} ms ({card})", flush=True)
+
+        # the command-line server over the artifact, in a child process
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "iris_tts_tpu_torch.serve", "--aot",
+             str(root), "--host", "127.0.0.1", "--port", "0",
+             "--max_batch", "16"],
+            cwd=Path(__file__).resolve().parent, stderr=subprocess.PIPE,
+            text=True)
+        try:
+            lines = []
+
+            def read_log():
+                for ln in iter(proc.stderr.readline, ""):
+                    lines.append(ln)
+
+            threading.Thread(target=read_log, daemon=True).start()
+            port = None
+            while port is None and time.perf_counter() - t0 < 300:
+                check(proc.poll() is None, "the --aot server is running: "
+                      + "".join(lines)[-2000:])
+                found = [ln for ln in lines if "serving on" in ln]
+                port = int(found[0].rsplit(":", 1)[1]) if found else None
+                time.sleep(0.05)
+            check(port is not None, "the --aot server opened its port")
+            boot_s = time.perf_counter() - t0
+            status, _, body, req_s = _post("127.0.0.1", port, "/synthesize",
+                                           {"text": SENTENCE, "seed": 11})
+            check(status == 200, f"--aot server status {status}")
+            cli_pcm = _wav_pcm(body)[1]
+        finally:
+            proc.send_signal(signal.SIGINT)
+            try:
+                rc = proc.wait(timeout=120)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+        check(rc == 0, f"--aot server exit code {rc}")
+        check(any("clamping max_batch 16 -> 8" in ln for ln in lines),
+              "--aot clamps the batch to the largest exported bucket")
+        want_pcm = aot.synthesize(SENTENCE, seed=11, pcm16=True)
+        check(len(cli_pcm) == len(want_pcm), "--aot server WAV length")
+        lsb = int(np.abs(cli_pcm.astype(np.int32) - want_pcm).max())
+        check(lsb <= 1, f"--aot server WAV vs AotPipeline.synthesize: {lsb} "
+                        "LSB")
+        print(f"phase 8 python -m iris_tts_tpu_torch.serve --aot: serving "
+              f"{boot_s:.2f} s after the process started (load, first "
+              f"capture); one request {req_s * 1e3:.2f} ms, its WAV vs "
+              f"AotPipeline.synthesize here: {lsb} LSB (bitwise "
+              f"{bool(np.array_equal(cli_pcm, want_pcm))}); SIGINT exit 0 "
+              f"({card})", flush=True)
+
+        # 7. the window program against the live streaming vocoder
+        rng = np.random.default_rng(7)
+        mel = rng.normal(-3.0, 2.0, (700, cfg.hifigan.in_channels)
+                         ).astype(np.float32)
+        got = np.concatenate(list(aot.vocode_streaming(mel)))
+        want = np.concatenate(list(pipe.vocode_streaming(
+            mel, chunk_frames=AOT_WINDOW_CHUNK)))
+        check(got.shape == want.shape, "window program streamed length")
+        v_peak = float(np.abs(want).max())
+        v_err = float(np.abs(got.astype(np.float64) - want).max())
+        check(v_err <= 1e-6 * v_peak, f"window graph vs live "
+                                      f"vocode_streaming {v_err} <= 1e-6 x "
+                                      f"peak {v_peak}")
+        check(np.array_equal(
+            np.concatenate(list(aot.vocode_streaming(mel, pcm16=True))),
+            host_pcm16(got)), "window program pcm16 = host PCM16")
+        win = aot._programs["vocwin"]
+        with aot._lock:
+            win_ms = time_cuda_ms(win.run, reps=20, warmup=3, graph=False)
+        print(f"phase 8 window program: 700 frames in 64-frame chunks vs "
+              f"live vocode_streaming {v_err:.3e} = {v_err / v_peak:.3e} of "
+              f"the peak; one window replay {win_ms:.3f} ms of device time "
+              f"(20 back to back, as phase 7 times it) vs the eager window "
+              + (f"{ref['win_ms']:.3f} ms (phase 7, this run)"
+                 if "win_ms" in ref else "(phase 7 not run)")
+              + f" ({card})", flush=True)
+        check(not aot.warmup_errors, f"no capture failed {aot.warmup_errors}")
     finally:
         tmp.cleanup()
     return mel_cuda.log_mel_cuda.launches
@@ -1046,7 +1399,10 @@ def main() -> int:
     train_launches = phase6_training(dev, card)
 
     # -- 7. serving at full width (the serving path) ------------------------
-    serve_launches = phase7_serving(dev, card)
+    serve_launches, served_7 = phase7_serving(dev, card)
+
+    # -- 8. ahead-of-time serving at full width (the AOT path) ---------------
+    aot_launches = phase8_aot(dev, card, served_7)
 
     # -- where the time goes: one fused synthesize under the profiler --------
     profile_line("fused synthesize", lambda: pipe.synthesize(SENTENCE, seed=1),
@@ -1058,10 +1414,12 @@ def main() -> int:
         "route": "cuda",
         "source": "iris_tts_tpu_torch/ops/csrc/log_mel.cu",
         "replaces": f"{jax_pkg}/ops/mel_pallas.py:110",
-        "launches": launches + train_launches + serve_launches,
+        "launches": launches + train_launches + serve_launches
+        + aot_launches,
         "launches_by_path": {"synthesis": launches,
                              "training": train_launches,
-                             "serving": serve_launches},
+                             "serving": serve_launches,
+                             "aot_serving": aot_launches},
         "max_abs_err": worst,
         "ms": k_ms,
         "plain_ms": p_ms,

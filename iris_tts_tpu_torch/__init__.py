@@ -3,10 +3,10 @@
 A second package beside the JAX one, with the same module names so each
 counterpart is easy to find. It imports ``torch`` and nothing of JAX or of
 the JAX package; its entry points run on a CUDA device unless the caller
-passes ``device="cpu"``. Serving (the dynamic batcher and the HTTP
-server) is in ``iris_tts_tpu_torch.serve``. The one TPU kernel of the JAX
-package (the fused log-mel) is a hand-written CUDA kernel here
-(``ops/csrc/log_mel.cu``).
+passes ``device="cpu"``. Serving (the dynamic batcher, the HTTP server
+and the ahead-of-time artifacts) is in ``iris_tts_tpu_torch.serve``. The
+one TPU kernel of the JAX package (the fused log-mel) is a hand-written
+CUDA kernel here (``ops/csrc/log_mel.cu``).
 """
 
 from iris_tts_tpu_torch.config import (

@@ -23,10 +23,18 @@ Beyond one-shot synthesis: exact chunked vocoding
 boundaries (:meth:`~TTSPipeline.synthesize_long`,
 :meth:`~TTSPipeline.stream`, :meth:`~TTSPipeline.synthesize_to_file`),
 warmup of every serving shape, and the dispatch/collect split the serving
-batcher (``serve/batcher.py``) drives.
+batcher (``serve/batcher.py``) drives. Phoneme features reach frame rate by
+hard length regulation or, with ``upsample="gaussian"``, by Gaussian
+upsampling.
+
+The fused path's device work is one function, :func:`fused_synthesis`,
+whose prior noise is an input. The live path draws that noise from a
+seeded ``torch.Generator`` (:func:`prior_noise`); ``serve/export.py``
+exports the same function per (batch, phoneme) bucket with
+``torch.export`` and feeds it the same noise.
 
 Not in this package yet: the packed single-transfer wire format (a TPU
-transport), Gaussian upsampling, bf16, meshes and sharded vocoding.
+transport), bf16, meshes and sharded vocoding.
 
 Seeds do not reproduce across the two packages: prior noise here comes
 from a ``torch.Generator``. ``temperature=0`` makes the prior sample
@@ -60,6 +68,7 @@ from iris_tts_tpu_torch.models.postnet import PostNet
 from iris_tts_tpu_torch.models.vae import TextConditionedVAE
 from iris_tts_tpu_torch.ops.length import (
     durations_from_log,
+    gaussian_upsample,
     length_regulate,
     padding_mask,
     round_up_to_multiple,
@@ -137,6 +146,83 @@ class SynthesisModel(nn.Module):
         self.hifigan = HiFiGANGenerator(config.hifigan)
 
 
+UPSAMPLE_MODES = ("hard", "gaussian")
+
+
+def stage_a(model: SynthesisModel, ids: torch.Tensor, lengths: torch.Tensor):
+    """Encoder + duration head: [B,P] ids + [B] lengths → (enc [B,P,E],
+    frames [B,P] int64, max total frames as a 0-d tensor: no host sync)."""
+    mask = padding_mask(lengths, ids.shape[1])
+    enc = model.encoder(ids, padding_mask=mask)
+    log_dur = model.duration(enc)
+    frames = durations_from_log(log_dur).to(torch.int64) * mask
+    return enc, frames, frames.sum(dim=1).max()
+
+
+def compress_durations(frames: torch.Tensor, total_frames: int):
+    """Fit each row's durations into ``total_frames`` by largest-remainder
+    apportionment: floor-scale, then give the leftover frames to the
+    largest remainders (stable order on ties, as ``jnp.argsort``), so a
+    compressed row sums to exactly the budget. Returns (frames, per-row
+    deficit = predicted − budget)."""
+    frames = frames.clamp(max=total_frames)
+    total = frames.sum(dim=1, keepdim=True)
+    capped = total.clamp(max=total_frames)
+    denom = total.clamp(min=1)
+    scaled = (frames * capped) // denom
+    rem = (frames * capped) % denom
+    shortfall = capped[:, 0] - scaled.sum(dim=1)
+    ranks = torch.argsort(torch.argsort(-rem, dim=1, stable=True), dim=1)
+    bump = (ranks < shortfall[:, None]).to(frames.dtype)
+    frames = torch.where(total > total_frames, scaled + bump, frames)
+    deficit = (total - total_frames).clamp(min=0)[:, 0]
+    return frames, deficit
+
+
+def acoustic(model: SynthesisModel, enc, frames, total_frames: int,
+             z: torch.Tensor, use_postnet: bool, upsample: str):
+    """Frame-rate conditioning (hard length regulation, or Gaussian
+    upsampling) + inverse flow and decode of the prior latent ``z``
+    [B, latent, T/down_factor] (+ PostNet) → (mel [B,T,n_mels], per-row
+    frame counts [B])."""
+    regulate = gaussian_upsample if upsample == "gaussian" else length_regulate
+    cond, frame_mask = regulate(enc, frames, total_frames)
+    mel, _ = model.vae.generate(cond, z_prior=z.transpose(1, 2))
+    if use_postnet:
+        mel = model.postnet(mel)
+    return mel, (frame_mask > 0).sum(dim=1)
+
+
+def prior_noise(batch: int, latent_dim: int, total_frames: int,
+                down_factor: int, seed: int,
+                device: torch.device) -> torch.Tensor:
+    """The prior's standard normal noise [B, latent, T/down_factor] from a
+    generator seeded with ``seed`` on ``device``: the draw
+    ``TextConditionedVAE.generate`` makes when it is given no latent."""
+    return torch.randn((batch, latent_dim, total_frames // down_factor),
+                       generator=seeded_generator(seed, device),
+                       device=device, dtype=torch.float32)
+
+
+def fused_synthesis(model: SynthesisModel, ids: torch.Tensor,
+                    lengths: torch.Tensor, eps: torch.Tensor, temperature,
+                    total_frames: int, use_postnet: bool, upsample: str):
+    """The fused path's device work, shared by the live pipeline and the
+    exported programs: stage A, compression into the ``total_frames``
+    budget, the acoustic model on the prior latent ``temperature · eps``,
+    and the vocoder.
+
+    Inputs: ids [B,P] int64, lengths [B] int64, eps [B, latent,
+    T/down_factor] f32, temperature (float or 0-d f32 tensor). Outputs:
+    (audio [B, T·hop] f32, mel [B,T,n_mels], n_frames [B], deficit [B]).
+    Nothing in it reads a value back to the host."""
+    enc, frames, _ = stage_a(model, ids, lengths)
+    frames, deficit = compress_durations(frames, total_frames)
+    mel, n_frames = acoustic(model, enc, frames, total_frames,
+                             temperature * eps, use_postnet, upsample)
+    return model.hifigan(mel), mel, n_frames, deficit
+
+
 @dataclass
 class TTSPipeline:
     """End-to-end text-to-speech pipeline. Build with :meth:`initialize`
@@ -149,6 +235,9 @@ class TTSPipeline:
     device: torch.device
     use_postnet: bool = True
     seed: int = 1337
+    # Frame-rate conditioning: "hard" length regulation or "gaussian"
+    # upsampling (ops/length.py).
+    upsample: str = "hard"
     phoneme_buckets: Tuple[int, ...] = PHONEME_BUCKETS
     frame_buckets: Tuple[int, ...] = FRAME_BUCKETS
     # Fused-path frame budget per phoneme; rows predicted beyond it are
@@ -164,6 +253,11 @@ class TTSPipeline:
     _ids_cache: Dict[str, np.ndarray] = field(
         default_factory=dict, init=False, repr=False)
     _ids_cache_max: int = field(default=4096, init=False, repr=False)
+
+    def __post_init__(self):
+        if self.upsample not in UPSAMPLE_MODES:
+            raise ValueError(f"upsample={self.upsample!r} is not one of "
+                             f"{UPSAMPLE_MODES}")
 
     # ------------------------------------------------------------------
     # constructors
@@ -287,7 +381,7 @@ class TTSPipeline:
 
     @classmethod
     def _assemble(cls, config, model, vocab, text_processor, device,
-                  use_postnet, seed) -> "TTSPipeline":
+                  use_postnet, seed, upsample="hard") -> "TTSPipeline":
         if config.hifigan.total_upsample != config.audio.hop_length:
             raise ValueError(
                 f"HiFiGAN upsamples by {config.hifigan.total_upsample} but "
@@ -298,7 +392,7 @@ class TTSPipeline:
             p.requires_grad_(False)
         return cls(config=config, model=model, vocab=vocab,
                    text_processor=text_processor, device=device,
-                   use_postnet=use_postnet, seed=seed)
+                   use_postnet=use_postnet, seed=seed, upsample=upsample)
 
     # ------------------------------------------------------------------
     # deployable directory
@@ -337,7 +431,7 @@ class TTSPipeline:
         (path / "meta.json").write_text(json.dumps({
             "use_postnet": self.use_postnet,
             "seed": self.seed,
-            "upsample": "hard",
+            "upsample": self.upsample,
             "params_dtype": "float16" if half else "float32",
             # Dropping these on reload would silently revert an operator's
             # overflow-budget and bucket tuning.
@@ -365,9 +459,6 @@ class TTSPipeline:
         config = load_config(path / "config.json")
         vocab = PhonemeVocab.load(path / "vocab.json")
         meta = json.loads((path / "meta.json").read_text())
-        if meta.get("upsample", "hard") != "hard":
-            raise ValueError(f"upsample={meta['upsample']!r} is not in this "
-                             "package (hard length regulation only)")
         config, vocab, text_processor = cls._prepare(config, vocab, None,
                                                      lexicon_path)
         model = SynthesisModel(config)
@@ -389,7 +480,8 @@ class TTSPipeline:
         model.load_state_dict(sd, strict=True)
         pipe = cls._assemble(config, model, vocab, text_processor, device,
                              meta.get("use_postnet", True),
-                             meta.get("seed", 1337))
+                             meta.get("seed", 1337),
+                             meta.get("upsample", "hard"))
         pipe.fused_frames_per_phoneme = int(meta.get(
             "fused_frames_per_phoneme", pipe.fused_frames_per_phoneme))
         if "fused_overflow_tolerance" in meta:
@@ -405,46 +497,18 @@ class TTSPipeline:
     # device stages
     # ------------------------------------------------------------------
 
-    def _stage_a(self, ids: torch.Tensor, lengths: torch.Tensor):
-        """[B,P] ids + [B] lengths → (enc [B,P,E], frames [B,P] int64,
-        max total frames (0-d tensor))."""
-        mask = padding_mask(lengths, ids.shape[1])
-        enc = self.model.encoder(ids, padding_mask=mask)
-        log_dur = self.model.duration(enc)
-        frames = durations_from_log(log_dur).to(torch.int64) * mask
-        return enc, frames, frames.sum(dim=1).max()
+    def _prior_noise(self, batch: int, total_frames: int,
+                     seed: int) -> torch.Tensor:
+        return prior_noise(batch, self.config.vae.latent_dim, total_frames,
+                           self.config.vae.down_factor, seed, self.device)
 
     def _acoustic(self, enc, frames, seed: int, total_frames: int,
                   temperature: float):
-        """Length-regulate + VAE prior sample/inverse flow/decode (+
-        PostNet) → (mel [B,T,n_mels], per-row frame counts [B])."""
-        cond, frame_mask = length_regulate(enc, frames, total_frames)
-        mel, _ = self.model.vae.generate(
-            cond, temperature=temperature,
-            generator=seeded_generator(seed, self.device))
-        if self.use_postnet:
-            mel = self.model.postnet(mel)
-        return mel, (frame_mask > 0).sum(dim=1)
-
-    @staticmethod
-    def _compress(frames: torch.Tensor, total_frames: int):
-        """Fit each row's durations into ``total_frames`` by
-        largest-remainder apportionment: floor-scale, then give the
-        leftover frames to the largest remainders (stable order on ties,
-        as ``jnp.argsort``), so a compressed row sums to exactly the
-        budget. Returns (frames, per-row deficit = predicted − budget)."""
-        frames = frames.clamp(max=total_frames)
-        total = frames.sum(dim=1, keepdim=True)
-        capped = total.clamp(max=total_frames)
-        denom = total.clamp(min=1)
-        scaled = (frames * capped) // denom
-        rem = (frames * capped) % denom
-        shortfall = capped[:, 0] - scaled.sum(dim=1)
-        ranks = torch.argsort(torch.argsort(-rem, dim=1, stable=True), dim=1)
-        bump = (ranks < shortfall[:, None]).to(frames.dtype)
-        frames = torch.where(total > total_frames, scaled + bump, frames)
-        deficit = (total - total_frames).clamp(min=0)[:, 0]
-        return frames, deficit
+        """:func:`acoustic` on the prior sample of ``seed`` →
+        (mel [B,T,n_mels], per-row frame counts [B])."""
+        eps = self._prior_noise(enc.shape[0], total_frames, seed)
+        return acoustic(self.model, enc, frames, total_frames,
+                        temperature * eps, self.use_postnet, self.upsample)
 
     def _vocode_device(self, mel: torch.Tensor) -> torch.Tensor:
         return self.model.hifigan(mel)
@@ -528,7 +592,7 @@ class TTSPipeline:
         """Host frontend + stage A + frame-bucket choice (one scalar
         comes back to the host)."""
         ids, lengths = self._to_device(*self._encode_texts(texts))
-        enc, frames, total_t = self._stage_a(ids, lengths)
+        enc, frames, total_t = stage_a(self.model, ids, lengths)
         total = int(total_t)
         factor = self.config.vae.down_factor
         t_bucket = pick_bucket(
@@ -577,14 +641,18 @@ class TTSPipeline:
     def _fused_device(self, ids_np: np.ndarray, lengths_np: np.ndarray,
                       t_bucket: int, seed_int: int, temperature: float,
                       pcm16: bool, return_mel: bool = False):
-        """The fused path on the device for a padded id batch: stage A,
-        compression into the ``t_bucket`` budget, stage B. Returns the
-        handle and the per-row overflow deficit (device tensors)."""
+        """:func:`fused_synthesis` on the device for a padded id batch,
+        with the prior noise of ``seed_int`` at the ``t_bucket`` budget.
+        Returns the handle and the per-row overflow deficit (device
+        tensors)."""
         ids, lengths = self._to_device(ids_np, lengths_np)
-        enc, frames, _ = self._stage_a(ids, lengths)
-        frames, deficit = self._compress(frames, t_bucket)
-        return self._stage_b(enc, frames, t_bucket, seed_int, temperature,
-                             pcm16, len(ids_np), return_mel), deficit
+        eps = self._prior_noise(len(ids_np), t_bucket, seed_int)
+        audio, mel, n_frames, deficit = fused_synthesis(
+            self.model, ids, lengths, eps, temperature, t_bucket,
+            self.use_postnet, self.upsample)
+        return _Dispatch(self._maybe_pcm16(audio, pcm16), n_frames,
+                         mel if return_mel else None, len(ids_np),
+                         pcm16), deficit
 
     def _fused_dispatch(self, texts: Sequence[str], seed_int: int,
                         temperature: float, pcm16: bool,
@@ -978,8 +1046,8 @@ class TTSPipeline:
             for p_bucket in self.phoneme_buckets:
                 ids_np = np.full((b, p_bucket), self.vocab.pad_id, np.int64)
                 lengths_np = np.full((b,), p_bucket, np.int64)
-                enc, frames, _ = self._stage_a(
-                    *self._to_device(ids_np, lengths_np))
+                enc, frames, _ = stage_a(
+                    self.model, *self._to_device(ids_np, lengths_np))
                 stage_a_out[p_bucket] = (enc, frames)
                 n += 1
             for p_bucket, (enc, frames) in stage_a_out.items():

@@ -1,27 +1,32 @@
 """HTTP text-to-speech server: dynamic batching over one CUDA device.
 
-Loads a pipeline directory written by ``TTSPipeline.save``, or builds one
-with seeded random weights for smoke testing, runs every serving shape
-once on the batcher's device thread (``warmup_fused``, then
-``warmup_batched`` over the batch buckets), and serves:
+Loads an ahead-of-time artifact directory (``--aot``, written by ``python
+-m iris_tts_tpu_torch.serve.export``: no model code, each bucket's program
+captured once as a CUDA graph and replayed), a pipeline directory written
+by ``TTSPipeline.save``, or builds one with seeded random weights for smoke
+testing. A live pipeline runs every serving shape once on the batcher's
+device thread (``warmup_fused``, then ``warmup_batched`` over the batch
+buckets); an artifact's programs are captured smallest first, the rest in
+the background unless ``--full_warmup``. Then it serves:
 
     POST /synthesize         {"text": "..."}  → audio/wav
     POST /synthesize_stream  {"text": "..."}  → chunked PCM16LE
     GET  /healthz, /stats
 
 Usage:
+    python -m iris_tts_tpu_torch.serve --aot outputs/aot --port 8080
     python -m iris_tts_tpu_torch.serve --pipeline outputs/exported --port 8080
     python -m iris_tts_tpu_torch.serve --random_weights --port 8080
 
-Not here yet: ahead-of-time executables (the JAX package's ``--aot``;
-per-bucket CUDA graphs are their planned counterpart) and data-parallel
-serving over several devices (``--mesh``).
+Not here yet: data-parallel serving over several devices (the JAX
+package's ``--mesh``).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import time
 from pathlib import Path
 
 from iris_tts_tpu_torch.config import load_config
@@ -34,6 +39,9 @@ logger = logging.getLogger("iris_tts_tpu_torch.serve")
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--aot", type=Path,
+                        help="artifact directory (python -m "
+                        "iris_tts_tpu_torch.serve.export): no model code")
     parser.add_argument("--pipeline", type=Path,
                         help="pipeline directory (TTSPipeline.save)")
     parser.add_argument("--random_weights", action="store_true",
@@ -61,17 +69,38 @@ def main(argv=None) -> None:
                         help="copy float32 audio to the host instead of "
                         "quantizing to PCM16 on the device (PCM16 halves "
                         "the device→host bytes)")
+    parser.add_argument("--full_warmup", action="store_true",
+                        help="--aot: capture every program before serving "
+                        "(default: the smallest bucket, the rest in the "
+                        "background)")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
 
-    if args.pipeline:
+    if args.aot:
+        from iris_tts_tpu_torch.serve.export import AotPipeline
+
+        pipe = AotPipeline(args.aot, device=args.device)
+        top = max(pipe.batch_buckets)
+        if args.max_batch > top:
+            logger.info("clamping max_batch %d -> %d (largest exported "
+                        "batch bucket)", args.max_batch, top)
+            args.max_batch = top
+        if args.max_batch_limit and args.max_batch_limit > top:
+            args.max_batch_limit = top
+        t0 = time.monotonic()
+        n = pipe.warmup(block=args.full_warmup)
+        logger.info("AOT warmup: %d of %d programs captured in %.1f s (%s)",
+                    n, len(pipe._programs), time.monotonic() - t0,
+                    "all up front" if args.full_warmup
+                    else "the rest in the background")
+    elif args.pipeline:
         pipe = TTSPipeline.load(args.pipeline, device=args.device)
     elif args.random_weights:
         config = load_config(args.config) if args.config else None
         pipe = TTSPipeline.initialize(config, device=args.device)
     else:
-        parser.error("need --pipeline DIR or --random_weights")
+        parser.error("need --aot DIR, --pipeline DIR or --random_weights")
     logger.info("pipeline on %s", pipe.device)
     serve_forever(pipe, host=args.host, port=args.port,
                   max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,

@@ -83,7 +83,8 @@ class DynamicBatcher:
 
     Args:
         pipeline: a ready :class:`iris_tts_tpu_torch.models.pipeline.
-            TTSPipeline` (its ``device`` decides where the work runs).
+            TTSPipeline` (its ``device`` decides where the work runs), or
+            an :class:`iris_tts_tpu_torch.serve.export.AotPipeline`.
         max_batch: most rows per device dispatch under light load (requests
             expand into chunks; slices never exceed the current effective
             batch).
@@ -222,19 +223,25 @@ class DynamicBatcher:
         return chunks
 
     def _warmup(self) -> int:
-        """Run every shape live traffic can reach once: every fused
-        (phoneme, frame) bucket pair (the path single-row groups take),
-        then every (batch, phoneme, frame) bucket of the two-stage path at
-        this batcher's batch buckets, in the transfer format it dispatches.
-        Returns the number of shapes run.
+        """Run every shape live traffic can reach once. A live pipeline
+        runs every fused (phoneme, frame) bucket pair (the path single-row
+        groups take), then every (batch, phoneme, frame) bucket of the
+        two-stage path at this batcher's batch buckets, in the transfer
+        format it dispatches. A pipeline without those (an ahead-of-time
+        ``serve.export.AotPipeline``) runs its own ``warmup()``. Returns
+        the number of shapes run.
 
         Private because it has to run on the device thread, which
         :meth:`start` does: PyTorch keeps cuDNN's per-shape execution
         plans per thread, so shapes warmed on another thread are still
         cold on the device thread."""
-        return (self._pipe.warmup_fused(pcm16=self._pcm16)
-                + self._pipe.warmup_batched(self._batch_buckets,
-                                            pcm16=self._pcm16))
+        pipe = self._pipe
+        if not hasattr(pipe, "warmup_fused"):
+            return int(pipe.warmup() or 0)
+        n = pipe.warmup_fused(pcm16=self._pcm16)
+        if hasattr(pipe, "warmup_batched"):
+            n += pipe.warmup_batched(self._batch_buckets, pcm16=self._pcm16)
+        return n
 
     def healthy(self) -> bool:
         """True while the device thread is alive and accepting work."""
@@ -426,8 +433,13 @@ class DynamicBatcher:
         # Bounded device work: at most the effective batch of rows per
         # dispatch, each slice padded to a power-of-two batch bucket
         # (duplicate rows are synthesized and dropped, so only warmed
-        # shapes run). Slice N+1 is dispatched before slice N is collected.
+        # shapes run). Where the pipeline has the dispatch/collect split
+        # (TTSPipeline), slice N+1 is dispatched before slice N is
+        # collected. Otherwise (AotPipeline, whose CUDA-graph outputs the
+        # next replay overwrites) each slice is synthesized and copied to
+        # the host before the next one starts.
         outs: List[np.ndarray] = []
+        split = hasattr(self._pipe, "_batched_dispatch")
         pending = None  # (handle, real_rows)
 
         def flush(handle):
@@ -440,17 +452,21 @@ class DynamicBatcher:
         for lo in range(0, len(flat), cap):
             part = flat[lo:lo + cap]
             padded = self._pad_to_bucket(part)
-            handle = self._pipe._batched_dispatch(
-                padded, temperature=group[0].temperature,
-                seed=group[0].seed, pcm16=self._pcm16,
-            )
+            kw = dict(temperature=group[0].temperature, seed=group[0].seed,
+                      pcm16=self._pcm16)
+            if split:
+                handle = self._pipe._batched_dispatch(padded, **kw)
+            else:
+                outs.extend(self._pipe.synthesize(padded, fused=False,
+                                                  **kw)[: len(part)])
             self.n_batches += 1
             with self._lat_lock:
                 self.batch_size_hist[len(padded)] = (
                     self.batch_size_hist.get(len(padded), 0) + 1
                 )
-            flush(pending)
-            pending = (handle, len(part))
+            if split:
+                flush(pending)
+                pending = (handle, len(part))
         flush(pending)
         self.n_requests += len(group)
         now = time.monotonic()
@@ -511,9 +527,11 @@ class DynamicBatcher:
             # Fused-path frame-budget compressions on the pipeline
             # (utterances whose predicted durations overflowed
             # fused_frames_per_phoneme and were rate-compressed) ...
-            "fused_overflows": self._pipe.fused_overflow_count,
+            "fused_overflows": getattr(self._pipe, "fused_overflow_count",
+                                       0),
             # ... of which, rows beyond fused_overflow_tolerance that were
             # re-synthesized on the two-stage path.
-            "fused_fallbacks": self._pipe.fused_fallback_count,
+            "fused_fallbacks": getattr(self._pipe, "fused_fallback_count",
+                                       0),
             "healthy": self.healthy(),
         }

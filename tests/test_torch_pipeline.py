@@ -103,6 +103,26 @@ def test_fused_overflow_compression_and_redo_match_jax(pipes, tolerance):
     assert tp.fused_fallback_count == (0 if tolerance is None else 1)
 
 
+@pytest.mark.parametrize("fused", [True, False])
+def test_gaussian_upsampling_matches_jax(pipes, fused):
+    """upsample="gaussian" (soft length regulation) on the fused path (one
+    sentence) and the two-stage path (a batch) against JAX's."""
+    jpipe, pipe = pipes
+    jp = dataclasses.replace(jpipe, upsample="gaussian")
+    tp = dataclasses.replace(pipe, upsample="gaussian")
+    texts = [SENTENCE] if fused else BATCH
+    _assert_clear_of_half(jpipe, texts)
+    want = jp.synthesize(texts, temperature=0.0, fused=fused)
+    got = tp.synthesize(texts, temperature=0.0, fused=fused)
+    hard = pipe.synthesize(texts, temperature=0.0, fused=fused)
+    assert len(got) == len(want) == len(texts)
+    for g, w in zip(got, want):
+        _assert_same_audio(g, w)
+    # the option is in force: soft regulation moves the audio off the hard
+    # path's (a short row's nearly hard)
+    assert max(max_abs(g, h) for g, h in zip(got, hard)) > 1e-2
+
+
 def test_pcm16_is_the_host_quantization(pipes):
     _, pipe = pipes
     f32 = pipe.synthesize(SENTENCE, temperature=0.0)

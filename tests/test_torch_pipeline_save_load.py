@@ -77,6 +77,21 @@ def test_save_load_roundtrip(pipe, tmp_path):
     assert meta["params_dtype"] == "float32" and meta["upsample"] == "hard"
 
 
+def test_save_load_keeps_gaussian_upsampling(pipe, tmp_path):
+    gauss = dataclasses.replace(pipe, upsample="gaussian")
+    want = gauss.synthesize("hello world", seed=3)
+    assert not np.array_equal(want, pipe.synthesize("hello world", seed=3))
+    gauss.save(tmp_path / "deploy")
+    meta = json.loads((tmp_path / "deploy" / "meta.json").read_text())
+    assert meta["upsample"] == "gaussian"
+    again = TTSPipeline.load(tmp_path / "deploy", device="cpu")
+    assert again.upsample == "gaussian"
+    np.testing.assert_array_equal(again.synthesize("hello world", seed=3),
+                                  want)
+    with pytest.raises(ValueError, match="upsample='nearest'"):
+        dataclasses.replace(pipe, upsample="nearest")
+
+
 def test_save_load_persists_tuned_serving_knobs(tmp_path):
     p = TTSPipeline.initialize(small_config(C), seed=0, device="cpu")
     p = dataclasses.replace(p, phoneme_buckets=(16, 32), frame_buckets=(32, 64),

@@ -14,6 +14,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 import wave
 from pathlib import Path
 
@@ -305,6 +306,64 @@ def test_failed_warmup_raises_from_start(pipeline, monkeypatch):
     assert not b.healthy() and not b._thread.is_alive()
     with pytest.raises(ServerStoppedError):
         b.submit("after a failed warmup")
+
+
+class _SyncOnlyPipeline:
+    """The surface an ahead-of-time pipeline gives the batcher: ``warmup()``
+    and ``synthesize()``, with no fused/two-stage warmups and no
+    dispatch/collect split. Each row's waveform encodes its text."""
+
+    phoneme_buckets = (16, 32)
+    config = types.SimpleNamespace(
+        audio=types.SimpleNamespace(sample_rate=22050),
+        hifigan=types.SimpleNamespace(total_upsample=256))
+
+    def __init__(self):
+        self.warm_threads, self.calls = [], []
+
+    def warmup(self):
+        self.warm_threads.append(threading.current_thread().name)
+        return 3
+
+    def synthesize(self, text, seed=None, temperature=1.0, fused=None,
+                   pcm16=False):
+        texts = [text] if isinstance(text, str) else list(text)
+        self.calls.append((threading.current_thread().name, len(texts),
+                           fused))
+        outs = [np.full(len(t), float(len(t)), np.float32) for t in texts]
+        return outs[0] if isinstance(text, str) else outs
+
+    def _chunk_long_text(self, text, max_phonemes):
+        return [text]
+
+    def join_chunks(self, outs, gap_ms=120.0):
+        return np.concatenate(outs)
+
+
+def test_batcher_serves_a_pipeline_with_only_warmup_and_synthesize():
+    """warmup() runs on the device thread, and a batched group is
+    synthesized slice by slice on the synchronous path (fused=False),
+    collected at once, each request getting its own row."""
+    stub = _SyncOnlyPipeline()
+    b = DynamicBatcher(stub, max_batch=4, max_wait_ms=200.0)
+    texts = ["a", "bb", "ccc", "dddd", "eeeee", "ffffff"]
+    futs = [b.submit(t) for t in texts]
+    b.start()
+    try:
+        assert stub.warm_threads == ["tts-batcher"] and b.n_warmed == 3
+        for t, f in zip(texts, futs):
+            np.testing.assert_array_equal(f.result(timeout=60),
+                                          np.full(len(t), float(len(t))))
+        single = b.synthesize("seeded", seed=1, timeout=60)
+        assert len(single) == len("seeded")
+    finally:
+        b.stop()
+    assert stub.calls[:2] == [("tts-batcher", 4, False),
+                              ("tts-batcher", 2, False)]
+    assert stub.calls[-1] == ("tts-batcher", 1, True)
+    stats = b.stats()
+    assert stats["requests"] == 7
+    assert stats["fused_overflows"] == stats["fused_fallbacks"] == 0
 
 
 # -- HTTP ---------------------------------------------------------------------
