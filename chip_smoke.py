@@ -54,7 +54,9 @@ every kernel against its plain PyTorch version:
    ``export_pipeline`` on the card for batch (1, 8) × phoneme buckets
    (16 … 128) and a 64-frame vocoder window into a temporary directory;
    ``AotPipeline`` loads the programs (no model code) and captures each as
-   a CUDA graph, the smallest first and the rest on a background thread;
+   a CUDA graph, the smallest first and the rest on a background thread,
+   and one request to the captured bucket while the rest capture (it
+   replays under the replay lock, not behind a capture);
    every bucket's graph vs the live fused function at the bucket's frame
    budget (≤ 1e-6 of the peak); ``AotPipeline.synthesize`` of one sentence
    and of a batch of 3 vs the live fused ``synthesize`` (equal lengths;
@@ -67,11 +69,25 @@ every kernel against its plain PyTorch version:
    (boots, clamps the batch, answers one request bitwise as
    ``AotPipeline.synthesize``, exits 0 on SIGINT); the window program vs
    the live ``vocode_streaming`` (≤ 1e-6 of the peak). Both servers stop
-   in a ``finally``.
+   in a ``finally``;
+9. bf16 and remat: phase 3's pipeline in bf16 over the same weights against
+   f32 at temperature 0 under the JAX package's gate (mel max|Δ| < 0.05,
+   mean < 0.01, audio < 1e-3), fused for the sentence and two-stage for the
+   batch of 4; per-phoneme frames equal wherever the f32 value is clear of
+   a rounding boundary, and a text whose frame count bf16 moves is gated
+   on f32's integer frames; fused latency and two 8-row slices in both
+   dtypes, with profiles and the bf16-kernel share of device time; the VAE
+   step and the GAN round on phase 6's fixed batches in f32, bf16 and bf16
+   + remat (median step of steps 4–20, peak memory, falling losses, f32
+   params); one bf16 AOT bucket (B=1, P=32) whose graph replay equals the
+   live bf16 fused function bitwise; bf16 copy synthesis through the
+   log-mel kernel, and the kernel on bf16 audio against the plain version
+   (bf16 out, within one bf16 ulp or the kernel's 2e-3).
 
-Four paths drive the kernel, or not: synthesis (phases 3 and 4),
-training (phase 6), serving (phase 7) and AOT serving (phase 8); the two
-serving paths compute no log-mel: 0 launches. Each path's launch counts
+Five paths drive the kernel, or not: synthesis (phases 3 and 4),
+training (phase 6), serving (phase 7), AOT serving (phase 8) and bf16
+(phase 9's copy synthesis); the two serving paths compute no log-mel: 0
+launches. Each path's launch counts
 are zeroed just before it and read just after, and a kernel of the path
 that was not launched fails the run.
 The last three lines are the card's name and power limit, a
@@ -215,10 +231,11 @@ def max_abs(a, b) -> float:
     return float((a - b).abs().max()) if a.numel() else 0.0
 
 
-def profile_line(label: str, fn, card: str) -> None:
+def profile_line(label: str, fn, card: str) -> list:
     """Run ``fn`` (which returns host data) once under ``torch.profiler``
     and print its wall time, the device's busy time and share, and the
-    kernels with the most device time."""
+    kernels with the most device time. Returns the (kernel, device µs)
+    rows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -239,11 +256,12 @@ def profile_line(label: str, fn, card: str) -> None:
         print(f"profile {label} (profiler on): wall {wall_us / 1e3:.2f} ms, "
               f"device busy {dev_us / 1e3:.2f} ms "
               f"({100 * dev_us / wall_us:.1f}%); top device time: "
-              + "; ".join(f"{k[:60]} {t / 1e3:.2f} ms" for k, t in top)
+              + "; ".join(f"{k[:110]} {t / 1e3:.2f} ms" for k, t in top)
               + f" ({card})", flush=True)
     else:
         print(f"profile {label}: the profiler recorded no device time (not "
               "measured)", flush=True)
+    return dev_rows
 
 
 def log_mel_work(batch: int, n_samples: int, cfg, tables):
@@ -373,9 +391,11 @@ def _small_stage_grads(device, cfg):
     return out
 
 
-def phase6_training(dev, card: str) -> int:
+def phase6_training(dev, card: str):
     """Training at full width (see the module docstring). Returns the
-    log-mel kernel's launches on this path."""
+    log-mel kernel's launches on this path, and what phase 9 trains on:
+    the config, the VAE stage's fixed batch, KL weight and frozen encoder,
+    and the GAN stage's fixed batch."""
     import numpy as np
 
     from iris_tts_tpu_torch import config as C
@@ -448,7 +468,7 @@ def phase6_training(dev, card: str) -> int:
             ("postnet", stages.postnet_stage, {}),
             ("gan", stages.gan_stage, dict(segment_frames=32)),
         ]
-        states = {}
+        states, handoff = {}, {"cfg": cfg}
         for name, build, extra in stage_fns:
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -490,6 +510,7 @@ def phase6_training(dev, card: str) -> int:
             states[name] = state
             if name == "duration":
                 duration_step, duration_batch = loop.train_step, batch
+            handoff[name] = (batch, extras, state.frozen)
 
         # 5. checkpoint round trip on the card
         state = states["duration"]
@@ -564,7 +585,7 @@ def phase6_training(dev, card: str) -> int:
             print(f"phase 6 card vs CPU {name}: loss {loss_c:.6f} "
                   f"(relative {rel_loss:.2e}), grads max-abs {err:.3e} = "
                   f"{err / scale:.2e} of max |g|", flush=True)
-        return train_launches
+        return train_launches, handoff
     finally:
         tmp.cleanup()
 
@@ -990,6 +1011,14 @@ def phase8_aot(dev, card: str, ref=None) -> int:
         t0 = time.perf_counter()
         n_first = aot.warmup(block=False)
         first_s = time.perf_counter() - t0
+        # a request to the bucket captured first while the rest capture:
+        # it replays under the replay lock, not behind a capture
+        t1 = time.perf_counter()
+        warm_audio = aot.synthesize(SERVE_TEXTS[0], seed=3)
+        warm_req_ms = (time.perf_counter() - t1) * 1e3
+        ready_then, in_flight = len(aot._ready), not aot.warm_all_done()
+        check(warm_audio.size > 0 and bool(np.isfinite(warm_audio).all()),
+              "a warm bucket's request during progressive warmup")
         while not aot.warm_all_done():
             check(time.perf_counter() - t0 < 600, "background capture done")
             time.sleep(0.01)
@@ -1008,6 +1037,13 @@ def phase8_aot(dev, card: str, ref=None) -> int:
               + f", card memory reserved "
               f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB ({card})",
               flush=True)
+        print(f"phase 8 warm request during progressive warmup: "
+              f"{SERVE_TEXTS[0]!r} to the bucket captured first took "
+              f"{warm_req_ms:.2f} ms with {ready_then} of "
+              f"{len(aot._programs)} graphs captured (captures still in "
+              f"flight when it returned: {in_flight}); run F2's --aot "
+              f"child's first request took 1230.85 ms behind the single "
+              f"capture/replay lock ({card})", flush=True)
 
         # 2. every bucket's graph against the live fused function at the
         # bucket's own frame budget, same noise, temperature 0.667
@@ -1232,6 +1268,331 @@ def phase8_aot(dev, card: str, ref=None) -> int:
         tmp.cleanup()
     return mel_cuda.log_mel_cuda.launches
 
+# Phase 9's bf16 gate: the JAX package's tests/test_pipeline.py::
+# test_bfloat16_parity_with_float32 (bf16 against f32 at temperature 0).
+BF16_MEL_MAX, BF16_MEL_MEAN, BF16_AUDIO_MAX = 0.05, 0.01, 1e-3
+# Phase 9's training steps: the VAE step and the GAN round, each in f32,
+# bf16 and bf16 + remat, 20 steps on phase 6's fixed batch.
+TRAIN_VARIANTS = (("f32", None, False), ("bf16", torch.bfloat16, False),
+                  ("bf16+remat", torch.bfloat16, True))
+
+
+def _bf16_ulp(x):
+    """bf16's spacing at each value of ``x`` (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
+
+
+def _tensor_core_share(rows) -> str:
+    """The share of profiled device time in kernels whose names say bf16
+    (cuDNN/cuBLAS tensor-core kernels name their types), and the largest
+    such kernel."""
+    total = sum(t for _, t in rows)
+    bf = [(k, t) for k, t in rows if "bf16" in k.lower()]
+    if not total:
+        return "not measured"
+    top = max(bf, key=lambda r: r[1])[0][:70] if bf else "none"
+    return (f"{100 * sum(t for _, t in bf) / total:.1f}% of device time in "
+            f"{len(bf)} bf16-named kernels (largest: {top})")
+
+
+def phase9_bf16(dev, card: str, pipe, handoff) -> int:
+    """bf16 and remat on the card (see the module docstring): synthesis in
+    bf16 against f32 under the JAX package's gate with both timed,
+    training steps in f32 / bf16 / bf16 + remat, one bf16 AOT bucket
+    against the live bf16 function, and bf16 copy synthesis through the
+    log-mel kernel. Returns the kernel's launches on this path (the copy
+    synthesis)."""
+    import dataclasses
+
+    import numpy as np
+
+    from iris_tts_tpu_torch.models.discriminators import (
+        HiFiGANDiscriminators,
+    )
+    from iris_tts_tpu_torch.models.hifigan import HiFiGANGenerator
+    from iris_tts_tpu_torch.models.layers import init_params
+    from iris_tts_tpu_torch.models.pipeline import (
+        fused_synthesis,
+        pick_bucket,
+        stage_a,
+    )
+    from iris_tts_tpu_torch.models.vae import TextConditionedVAE
+    from iris_tts_tpu_torch.ops.length import round_up_to_multiple
+    from iris_tts_tpu_torch.ops import mel_cuda
+    from iris_tts_tpu_torch.ops.stft import (
+        log_mel_spectrogram,
+        log_mel_spectrogram_plain,
+    )
+    from iris_tts_tpu_torch.serve.export import AotPipeline, export_pipeline
+    from iris_tts_tpu_torch.train.gan import GANState, make_gan_train_step
+    from iris_tts_tpu_torch.train.state import TrainState, adam_clipped
+    from iris_tts_tpu_torch.train.steps import make_vae_train_step
+
+    t_phase = time.perf_counter()
+    mel_cuda.log_mel_cuda.launches = 0
+    pipe16 = dataclasses.replace(pipe, dtype=torch.bfloat16)
+    check(all(p.dtype == torch.float32 for p in pipe16.model.parameters()),
+          "a bf16 pipeline keeps f32 params")
+
+    # 1. synthesis: bf16 against f32 under JAX's gate, temperature 0. A
+    # bf16 log-duration one rounding step off can move a frame where the
+    # f32 value sits near a .5 boundary (round(exp(p) - 1)): frame counts
+    # must agree for every phoneme clear of one, and a flipped text is
+    # held to the gate on f32's integer frames (stage B).
+    def stage_a_of(p, texts):
+        ids, lengths = p._encode_texts(texts)
+        ids_t, len_t = p._to_device(ids, lengths)
+        with torch.inference_mode():
+            enc, frames, _ = stage_a(p.model, ids_t, len_t)
+            x = torch.exp(p.model.duration(enc).float()) - 1.0
+        return enc, frames, x, lengths
+
+    def gate(label, n, x32, x16, y32, y16):
+        d_mel = np.abs(y32 - y16)
+        d_audio = float(np.abs(x32 - x16).max())
+        check(0 < d_mel.max() < BF16_MEL_MAX and d_mel.mean() < BF16_MEL_MEAN
+              and d_audio < BF16_AUDIO_MAX,
+              f"bf16 vs f32 under JAX's gate ({label}): mel max "
+              f"{d_mel.max()}, mean {d_mel.mean()}, audio {d_audio}")
+        check(x16.dtype == np.float32 and y16.dtype == np.float32,
+              "the public API returns f32 from a bf16 pipeline")
+        return (label, n, float(d_mel.max()), float(d_mel.mean()), d_audio,
+                float(np.abs(x32).max()))
+
+    gaps, flips = [], []
+    factor = pipe.config.vae.down_factor
+    for label, texts, fused in (("fused", [SENTENCE], True),
+                                ("two-stage", BATCH, False)):
+        a32, m32 = pipe.synthesize(texts, seed=1, temperature=0.0,
+                                   return_mel=True, fused=fused)
+        a16, m16 = pipe16.synthesize(texts, seed=1, temperature=0.0,
+                                     return_mel=True, fused=fused)
+        enc32, fr32, x32, lengths = stage_a_of(pipe, texts)
+        enc16, fr16, _, _ = stage_a_of(pipe16, texts)
+        for i, t in enumerate(texts):
+            n = int(lengths[i])
+            x, f32_, f16_ = (x32[i, :n].cpu(), fr32[i, :n].cpu(),
+                             fr16[i, :n].cpu())
+            near = ((x - x.floor()) - 0.5).abs() <= 0.05 * (1.0 + x)
+            check(bool((f32_ == f16_)[~near].all()),
+                  f"bf16 frames of {t!r} equal f32's away from a rounding "
+                  f"boundary")
+            if m32[i].shape == m16[i].shape:
+                gaps.append(gate(label, m16[i].shape[0], a32[i], a16[i],
+                                 m32[i], m16[i]))
+                continue
+            flips.append(f"{t!r} {m32[i].shape[0]} -> {m16[i].shape[0]} "
+                         f"frames ({int((f32_ != f16_).sum())} phoneme(s), "
+                         f"f32 value(s) "
+                         + ", ".join(f"{float(v):.3f}"
+                                     for v in x[f32_ != f16_]) + ")")
+            total = int(fr32[i].sum())
+            t_bucket = pick_bucket(round_up_to_multiple(max(total, factor),
+                                                        factor),
+                                   pipe.frame_buckets)
+            with torch.inference_mode():
+                outs = [p._fetch_rows(p._stage_b(
+                    e[i:i + 1], fr32[i:i + 1], t_bucket, 1, 0.0, False, 1,
+                    return_mel=True)) for p, e in ((pipe, enc32),
+                                                   (pipe16, enc16))]
+            (b32, c32), (b16, c16) = outs
+            gaps.append(gate(f"{label}, stage B on f32's frames", total,
+                             b32[0], b16[0], c32[0], c16[0]))
+    print("phase 9 bf16 vs f32 at temperature 0 (JAX's gate: mel max < "
+          f"{BF16_MEL_MAX}, mean < {BF16_MEL_MEAN}, audio max < "
+          f"{BF16_AUDIO_MAX}): "
+          + "; ".join(f"{l} {n} frames: mel max {mx:.4f}, mean {mn:.5f}, "
+                      f"audio max {au:.3e} (peak {pk:.3e})"
+                      for l, n, mx, mn, au, pk in gaps)
+          + "; frame counts moved by bf16 at a rounding boundary: "
+          + ("; ".join(flips) if flips else "none"), flush=True)
+
+    rows = [SERVE_TEXTS[4 + i % 3] for i in range(8)]
+    times = {}
+    for _ in range(2):  # f32, bf16, f32, bf16: same call, both orders
+        for tag, p in (("f32", pipe), ("bf16", pipe16)):
+            def two_slices(p=p):
+                for _ in range(2):
+                    p._batched_collect(p._batched_dispatch(rows, seed=0,
+                                                           pcm16=True))
+            times.setdefault(tag, []).append((
+                time_host_ms(lambda p=p: p.synthesize(SENTENCE, seed=1)),
+                time_host_ms(two_slices)))
+    print("phase 9 times, host clock, median of 5, measured twice "
+          "alternating: fused one sentence f32 "
+          + " / ".join(f"{f:.2f}" for f, _ in times["f32"]) + " ms, bf16 "
+          + " / ".join(f"{f:.2f}" for f, _ in times["bf16"])
+          + " ms; two 8-row two-stage slices back to back f32 "
+          + " / ".join(f"{s:.2f}" for _, s in times["f32"]) + " ms, bf16 "
+          + " / ".join(f"{s:.2f}" for _, s in times["bf16"])
+          + f" ms ({card})", flush=True)
+    fused_rows = profile_line("phase 9 bf16 fused synthesize",
+                              lambda: pipe16.synthesize(SENTENCE, seed=1),
+                              card)
+
+    def two_slices16():
+        for _ in range(2):
+            pipe16._batched_collect(pipe16._batched_dispatch(rows, seed=0,
+                                                             pcm16=True))
+
+    slice_rows = profile_line("phase 9 bf16 two 8-row slices", two_slices16,
+                              card)
+    print(f"phase 9 tensor cores: fused call {_tensor_core_share(fused_rows)}"
+          f"; two slices {_tensor_core_share(slice_rows)} ({card})",
+          flush=True)
+
+    # 2. training: the VAE step and the GAN round, f32 / bf16 / bf16+remat
+    cfg = handoff["cfg"]
+    vae_batch, vae_extras, vae_frozen = handoff["vae"]
+    gan_batch = handoff["gan"][0]
+
+    def vae_run(dtype, remat):
+        vae = TextConditionedVAE(cfg.vae)
+        init_params(vae, torch.Generator().manual_seed(cfg.train.seed))
+        state = TrainState.create(vae.to(dev), adam_clipped(
+            cfg.train.learning_rate, clip_norm=cfg.train.clip_norm),
+            cfg.train.seed, frozen=dict(vae_frozen.items()))
+        step = make_vae_train_step(cfg, compute_dtype=dtype, remat=remat)
+        return state, lambda st: step(st, vae_batch, *vae_extras), "total"
+
+    def gan_run(dtype, remat):
+        gen = HiFiGANGenerator(cfg.hifigan)
+        init_params(gen, torch.Generator().manual_seed(cfg.train.seed))
+        disc = HiFiGANDiscriminators()
+        init_params(disc, torch.Generator().manual_seed(cfg.train.seed + 1))
+        tx = adam_clipped(cfg.train.learning_rate,
+                          clip_norm=cfg.train.clip_norm, b1=0.8, b2=0.99)
+        state = GANState(TrainState.create(gen.to(dev), tx, cfg.train.seed),
+                         TrainState.create(disc.to(dev), tx,
+                                           cfg.train.seed + 1))
+        step = make_gan_train_step(cfg, compute_dtype=dtype, remat=remat)
+        return state, lambda st: step(st, gan_batch), "gen_mel_l1"
+
+    train_lines = []
+    for name, build in (("VAE step", vae_run), ("GAN round", gan_run)):
+        for tag, dtype, remat in TRAIN_VARIANTS:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            state, run, key = build(dtype, remat)
+            losses, step_ms = [], []
+            for _ in range(20):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                state, m = run(state)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+                losses.append(float(m[key]))
+            peak = torch.cuda.max_memory_allocated()
+            if name == "GAN round" and not remat:
+                profile_line(f"phase 9 GAN round {tag}",
+                             lambda: float(run(state)[1][key]), card)
+            params = (state.params.parameters() if name == "VAE step"
+                      else list(state.gen.params.parameters())
+                      + list(state.disc.params.parameters()))
+            check(all(q.dtype == torch.float32 for q in params),
+                  f"{name} {tag}: params stay f32")
+            check(all(math.isfinite(v) for v in losses),
+                  f"{name} {tag}: finite losses")
+            check(losses[-1] < losses[0], f"{name} {tag}: {key} falls "
+                                          f"({losses[0]} -> {losses[-1]})")
+            train_lines.append(
+                f"{name} {tag}: median {statistics.median(step_ms[3:]):.2f} "
+                f"ms (steps 4-20), peak {peak / 2**20:.1f} MiB "
+                f"(+{(peak - base) / 2**20:.1f} over the "
+                f"{base / 2**20:.1f} MiB live before), {key} "
+                f"{losses[0]:.5f} -> {losses[-1]:.5f}")
+            del state, run
+    print(f"phase 9 training at full width, batch 16 (phase 6's fixed "
+          f"batches: VAE {tuple(vae_batch['mel'].shape)}, GAN "
+          f"{tuple(gan_batch['audio'].shape)}): " + "; ".join(train_lines)
+          + f" ({card})", flush=True)
+
+    # 3. one bf16 AOT bucket against the live bf16 fused function
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_aot16_")
+    try:
+        root = Path(tmp.name)
+        t0 = time.perf_counter()
+        export_pipeline(pipe16, root, batch_sizes=(1,), phoneme_buckets=(32,))
+        export_s = time.perf_counter() - t0
+        manifest = json.loads((root / "manifest.json").read_text())
+        check(manifest["dtype"] == "bfloat16", "the manifest records bf16")
+        aot = AotPipeline(root, text_processor=pipe.text_processor,
+                          device=dev)
+        aot.warmup()
+        prog = aot._programs[(1, 32)]
+        check(prog.graph is not None, "the bf16 bucket captured as a graph")
+        t_frames = aot._entries[(1, 32)]["frame_bucket"]
+        ids_np, lengths_np = pipe16._encode_texts([SERVE_TEXTS[5]])
+        ids = np.full((1, 32), pipe16.vocab.pad_id, np.int64)
+        ids[0, :min(32, ids_np.shape[1])] = ids_np[0, :32]
+        lengths = np.minimum(lengths_np, 32)
+        eps = pipe16._prior_noise(1, t_frames, 21)
+        with torch.inference_mode():
+            want = fused_synthesis(pipe16.model, torch.from_numpy(ids).to(dev),
+                                   torch.from_numpy(lengths).to(dev), eps, 0.667,
+                                   t_frames, pipe16.use_postnet,
+                                   pipe16.upsample)
+            want = [w.clone() for w in want]
+        with aot._lock:
+            ids_t, len_t, eps_t, temp_t = prog.inputs
+            check(eps_t.dtype == torch.bfloat16, "the bf16 noise input")
+            ids_t.copy_(torch.from_numpy(ids))
+            len_t.copy_(torch.from_numpy(lengths))
+            eps_t.copy_(eps)
+            temp_t.fill_(0.667)
+            got = [g.clone() for g in prog.run()]
+        for name, g, w in zip(("audio", "mel", "n_frames", "deficit"),
+                              got, want):
+            check(g.dtype == w.dtype and torch.equal(g, w),
+                  f"bf16 graph replay vs live bf16 fused function: {name} "
+                  f"bitwise")
+        print(f"phase 9 AOT: the bf16 pipeline's (B=1, P=32) bucket "
+              f"({t_frames} frames) exported in {export_s:.1f} s, manifest "
+              f"dtype {manifest['dtype']}; its graph replay equals the live "
+              f"bf16 fused function bitwise (audio {got[0].dtype}, mel, "
+              f"frame counts, deficit; temperature 0.667)", flush=True)
+        del aot, prog
+    finally:
+        tmp.cleanup()
+
+    # 4. bf16 copy synthesis through the log-mel kernel (the path's launch),
+    # then the kernel against the plain version on the same bf16 audio
+    cfg_a = pipe.config.audio
+    audio16 = torch.from_numpy(pipe16.synthesize(SENTENCE, seed=1)).to(
+        dev).to(torch.bfloat16)
+    feats = log_mel_spectrogram(audio16, cfg_a)
+    resynth = pipe16.vocode(feats)
+    check(feats.dtype == torch.bfloat16, "bf16 audio gives a bf16 log-mel")
+    check(len(resynth) == feats.shape[0] * pipe.config.hifigan.total_upsample
+          and bool(np.isfinite(resynth).all()), "bf16 copy synthesis")
+    launches = mel_cuda.log_mel_cuda.launches
+    t = torch.arange(70000, device=dev) / cfg_a.sample_rate
+    noisy = 0.4 * torch.sin(2 * torch.pi * 440 * t) + 0.05 * torch.randn(
+        (3, 70000), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    for label, a in (("synthesized", audio16),
+                     ("tone + noise", noisy.to(torch.bfloat16))):
+        k16 = mel_cuda.log_mel_cuda(a, cfg_a)
+        p16 = log_mel_spectrogram_plain(a, cfg_a)
+        check(k16.dtype == p16.dtype == torch.bfloat16, "bf16 log-mel")
+        diff = (k16.float() - p16.float()).abs()
+        ulp = _bf16_ulp(p16.float())
+        over = int((diff > ulp).sum())
+        # within one bf16 ulp, or within the kernel's f32 tolerance where a
+        # value lies so near 0 that its ulp is below that tolerance
+        check(bool((diff <= torch.maximum(ulp, torch.full_like(ulp, 2e-3))
+                    ).all()), f"bf16 log-mel kernel vs plain ({label})")
+        print(f"phase 9 log-mel kernel on bf16 audio ({label}, "
+              f"{tuple(a.shape)}): bf16 out, {int((diff == 0).sum())} of "
+              f"{diff.numel()} values equal to the plain version, "
+              f"{diff.numel() - over - int((diff == 0).sum())} one ulp "
+              f"apart, {over} beyond one ulp (each within 2e-3; max "
+              f"{float(diff.max()):.3e})", flush=True)
+    print(f"phase 9 done in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1396,13 +1757,17 @@ def main() -> int:
           flush=True)
 
     # -- 6. training at full width (the training path) ----------------------
-    train_launches = phase6_training(dev, card)
+    train_launches, handoff = phase6_training(dev, card)
 
     # -- 7. serving at full width (the serving path) ------------------------
     serve_launches, served_7 = phase7_serving(dev, card)
 
     # -- 8. ahead-of-time serving at full width (the AOT path) ---------------
     aot_launches = phase8_aot(dev, card, served_7)
+
+    # -- 9. bf16 and remat (the bf16 path) -----------------------------------
+    bf16_launches = phase9_bf16(dev, card, pipe, handoff)
+    check(bf16_launches >= 1, "the bf16 path launched the log-mel kernel")
 
     # -- where the time goes: one fused synthesize under the profiler --------
     profile_line("fused synthesize", lambda: pipe.synthesize(SENTENCE, seed=1),
@@ -1415,11 +1780,12 @@ def main() -> int:
         "source": "iris_tts_tpu_torch/ops/csrc/log_mel.cu",
         "replaces": f"{jax_pkg}/ops/mel_pallas.py:110",
         "launches": launches + train_launches + serve_launches
-        + aot_launches,
+        + aot_launches + bf16_launches,
         "launches_by_path": {"synthesis": launches,
                              "training": train_launches,
                              "serving": serve_launches,
-                             "aot_serving": aot_launches},
+                             "aot_serving": aot_launches,
+                             "bf16": bf16_launches},
         "max_abs_err": worst,
         "ms": k_ms,
         "plain_ms": p_ms,

@@ -9,6 +9,7 @@ from iris_tts_tpu_torch.data.audio_io import (
     wav_bytes,
     write_wav,
 )
+from iris_tts_tpu_torch.data.batching import prefetch_to_device
 
 __all__ = [
     "join_wave_chunks",
@@ -18,4 +19,5 @@ __all__ = [
     "to_mono",
     "wav_bytes",
     "write_wav",
+    "prefetch_to_device",
 ]

@@ -20,8 +20,7 @@ import torch
 
 from iris_tts_tpu_torch.data.audio_io import load_audio
 from iris_tts_tpu_torch.data.ljspeech import Sample
-from iris_tts_tpu_torch.models.pipeline import pick_bucket
-from iris_tts_tpu_torch.ops.length import round_up_to_multiple
+from iris_tts_tpu_torch.ops.length import pick_bucket, round_up_to_multiple
 
 DEFAULT_PHONEME_BUCKETS = (32, 64, 96, 128, 192, 256)
 DEFAULT_FRAME_BUCKETS = (128, 256, 384, 512, 768, 1024, 1536, 2048)

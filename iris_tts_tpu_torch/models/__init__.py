@@ -19,7 +19,15 @@ from iris_tts_tpu_torch.models.pipeline import (
     pick_bucket,
 )
 from iris_tts_tpu_torch.models.postnet import PostNet
-from iris_tts_tpu_torch.models.vae import TextConditionedVAE
+from iris_tts_tpu_torch.models.vae import (
+    APCoupling,
+    FiLM,
+    TemporalDownsample,
+    TemporalUpsample,
+    TextConditionedVAE,
+    VolumePreservingFlow,
+    WaveNetResBlock,
+)
 
 __all__ = [
     "DurationPredictor",
@@ -34,5 +42,11 @@ __all__ = [
     "TTSPipeline",
     "pick_bucket",
     "PostNet",
+    "APCoupling",
+    "FiLM",
+    "TemporalDownsample",
+    "TemporalUpsample",
     "TextConditionedVAE",
+    "VolumePreservingFlow",
+    "WaveNetResBlock",
 ]

@@ -16,6 +16,7 @@ Both return (logits, feature maps) for the LSGAN and feature-matching
 losses. Audio is [B, T]; the MPD feature maps are [B, C, T/p, p] and the
 MSD ones [B, C, T'] (the JAX package keeps channels last). Submodule names
 follow the flax tree (``mpd.period_2.conv_0``, ``msd.scale_0.conv_post``).
+``dtype`` is the compute dtype of every convolution (``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from iris_tts_tpu_torch.models.layers import Conv1d, Conv2d
+from iris_tts_tpu_torch.models.layers import Conv1d, Conv2d, set_dtype
 
 _LRELU = 0.1
 
@@ -154,10 +155,12 @@ class HiFiGANDiscriminators(nn.Module):
     combined discriminator loss). Full width by default."""
 
     def __init__(self, periods: Tuple[int, ...] = (2, 3, 5, 7, 11),
-                 num_scales: int = 3, width: float = 1.0):
+                 num_scales: int = 3, width: float = 1.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.mpd = MultiPeriodDiscriminator(periods, width)
         self.msd = MultiScaleDiscriminator(num_scales, width)
+        set_dtype(self, dtype)
 
     def forward(self, audio: torch.Tensor):
         mpd_logits, mpd_feats = self.mpd(audio)

@@ -8,6 +8,13 @@ tree (``block_0.attention.query``, ``norm_1``, ...). With
 weights, attention output, FFN hidden and output, the embedding sum, and
 after each duration-head LayerNorm; its masks come from the ``generator``
 passed in (``layers.dropout``).
+
+``dtype`` is the compute dtype (``models/layers.py``). In bf16, as flax's
+modules with ``dtype=bfloat16`` compute (flax 0.12): the embeddings are
+cast, Q/K/V and the attention logits are bf16, the mask fills with bf16's
+``finfo.min``, the softmax runs in the logits' dtype
+(``force_fp32_for_softmax`` is off by default), and each LayerNorm takes
+its statistics in f32 and returns bf16.
 """
 
 from __future__ import annotations
@@ -20,7 +27,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from iris_tts_tpu_torch.config import DurationConfig, EncoderConfig
-from iris_tts_tpu_torch.models.layers import Conv1d, Dense, dropout
+from iris_tts_tpu_torch.models.layers import (
+    Conv1d,
+    Dense,
+    LayerNorm,
+    dropout,
+    set_dtype,
+)
 
 _LN_EPS = 1e-6
 
@@ -69,14 +82,15 @@ class TransformerBlock(nn.Module):
     + residual + LN."""
 
     def __init__(self, embed_dim: int, num_heads: int, ffn_dim: int,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dropout = dropout
         self.attention = MultiHeadAttention(embed_dim, num_heads)
-        self.attn_norm = nn.LayerNorm(embed_dim, eps=_LN_EPS)
+        self.attn_norm = LayerNorm(embed_dim, eps=_LN_EPS)
         self.ffn_in = Dense(embed_dim, ffn_dim)
         self.ffn_out = Dense(ffn_dim, embed_dim)
-        self.ffn_norm = nn.LayerNorm(embed_dim, eps=_LN_EPS)
+        self.ffn_norm = LayerNorm(embed_dim, eps=_LN_EPS)
+        set_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor,
                 attn_mask: Optional[torch.Tensor] = None,
@@ -93,9 +107,11 @@ class TransformerBlock(nn.Module):
 class PhonemeEncoder(nn.Module):
     """Phoneme IDs [B, P] → contextual representations [B, P, E]."""
 
-    def __init__(self, config: EncoderConfig = EncoderConfig()):
+    def __init__(self, config: EncoderConfig = EncoderConfig(),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.config = config
+        self.dtype = dtype
         self.phoneme_embedding = nn.Embedding(config.vocab_size,
                                               config.embed_dim)
         self.position_embedding = nn.Embedding(config.max_length,
@@ -105,7 +121,8 @@ class PhonemeEncoder(nn.Module):
             self.add_module(f"block_{i}", TransformerBlock(
                 config.embed_dim, config.num_heads, config.ffn_hidden,
                 config.dropout))
-        self.output_norm = nn.LayerNorm(config.embed_dim, eps=_LN_EPS)
+        self.output_norm = LayerNorm(config.embed_dim, eps=_LN_EPS)
+        set_dtype(self, dtype)
 
     def forward(self, phoneme_ids: torch.Tensor,
                 padding_mask: Optional[torch.Tensor] = None,
@@ -115,8 +132,8 @@ class PhonemeEncoder(nn.Module):
         = valid; ``deterministic=False`` turns dropout on."""
         seq_len = phoneme_ids.shape[1]
         positions = torch.arange(seq_len, device=phoneme_ids.device)
-        x = (self.phoneme_embedding(phoneme_ids)
-             + self.position_embedding(positions)[None])
+        x = (self.phoneme_embedding(phoneme_ids).to(self.dtype)
+             + self.position_embedding(positions)[None].to(self.dtype))
         x = dropout(x, self.config.dropout, deterministic, generator)
         attn_mask = None
         if padding_mask is not None:
@@ -135,7 +152,8 @@ class DurationPredictor(nn.Module):
     """Encoder output [B, P, E] → per-phoneme log-durations [B, P]:
     conv stack (ReLU + LN eps 1e-6) → 1×1 conv → softplus."""
 
-    def __init__(self, in_dim: int, config: DurationConfig = DurationConfig()):
+    def __init__(self, in_dim: int, config: DurationConfig = DurationConfig(),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_layers = config.num_layers
         self.dropout = config.dropout
@@ -143,10 +161,11 @@ class DurationPredictor(nn.Module):
         for i in range(config.num_layers):
             self.add_module(f"conv_{i}", Conv1d(c, config.hidden_dim,
                                                 config.kernel_size))
-            self.add_module(f"norm_{i}", nn.LayerNorm(config.hidden_dim,
-                                                      eps=_LN_EPS))
+            self.add_module(f"norm_{i}", LayerNorm(config.hidden_dim,
+                                                   eps=_LN_EPS))
             c = config.hidden_dim
         self.output_proj = Conv1d(c, 1, 1)
+        set_dtype(self, dtype)
 
     def forward(self, encoder_output: torch.Tensor,
                 deterministic: bool = True,

@@ -8,7 +8,13 @@ so T mel frames become exactly T · prod(upsample_rates) samples.
 The convolutions are about 99% of synthesis FLOPs. In the JAX package they
 are XLA's own conv lowering (no Pallas kernel), and here they are
 ``F.conv1d`` / ``F.conv_transpose1d``; f32 must stay f32 on the card, so
-callers pin TF32 off (``runtime.pin_f32_math``).
+callers pin TF32 off (``runtime.pin_math_precision``).
+
+``dtype`` is the compute dtype (``models/layers.py``); the waveform comes
+out in it. ``remat=True`` recomputes each MRF ``ResBlock``'s activations
+in the backward pass (the resblocks run at the upsampled rate, so they
+hold most of the GAN stage's activation memory), as the JAX generator's
+``nn.remat(ResBlock)``; with gradients off it changes nothing.
 """
 
 from __future__ import annotations
@@ -20,7 +26,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from iris_tts_tpu_torch.config import HiFiGANConfig
-from iris_tts_tpu_torch.models.layers import Conv1d, ConvTranspose1d
+from iris_tts_tpu_torch.models.layers import (
+    Conv1d,
+    ConvTranspose1d,
+    checkpoint_block,
+    set_dtype,
+)
 
 LRELU_SLOPE = 0.1
 
@@ -60,9 +71,11 @@ class HiFiGANGenerator(nn.Module):
     → waveform ``[B, T · total_upsample]``.
     """
 
-    def __init__(self, config: HiFiGANConfig = HiFiGANConfig()):
+    def __init__(self, config: HiFiGANConfig = HiFiGANConfig(),
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         cfg = self.config = config
+        self.remat = remat
         self.num_kernels = len(cfg.resblock_kernel_sizes)
         self.num_ups = len(cfg.upsample_rates)
         c0 = cfg.upsample_initial_channel
@@ -77,6 +90,7 @@ class HiFiGANGenerator(nn.Module):
                 self.add_module(f"resblocks_{i * self.num_kernels + j}",
                                 ResBlock(ch, rk, tuple(rd)))
         self.conv_post = _torch_conv(c0 // (2 ** self.num_ups), 1, 7)
+        set_dtype(self, dtype)
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         x = self.conv_pre(mel.transpose(1, 2))
@@ -85,7 +99,11 @@ class HiFiGANGenerator(nn.Module):
             # Multi-receptive-field fusion: average of the resblock outputs.
             acc = None
             for j in range(self.num_kernels):
-                out = getattr(self, f"resblocks_{i * self.num_kernels + j}")(x)
+                block = getattr(self, f"resblocks_{i * self.num_kernels + j}")
+                if self.remat and torch.is_grad_enabled():
+                    out = checkpoint_block(block, x)
+                else:
+                    out = block(x)
                 acc = out if acc is None else acc + out
             x = acc / self.num_kernels
         x = self.conv_post(F.leaky_relu(x, LRELU_SLOPE))

@@ -33,8 +33,13 @@ seeded ``torch.Generator`` (:func:`prior_noise`); ``serve/export.py``
 exports the same function per (batch, phoneme) bucket with
 ``torch.export`` and feeds it the same noise.
 
-Not in this package yet: the packed single-transfer wire format (a TPU
-transport), bf16, meshes and sharded vocoding.
+``dtype=torch.bfloat16`` on every constructor (or ``dataclasses.replace(
+pipe, dtype=...)``) computes in bf16 as the JAX package's ``dtype`` does:
+the parameters stay f32, each layer casts at the op
+(``models/layers.py``), frame counts are summed in int32, and the public
+API returns f32 audio and mels. Not in this package yet: the packed
+single-transfer wire format (a TPU transport), meshes and sharded
+vocoding.
 
 Seeds do not reproduce across the two packages: prior noise here comes
 from a ``torch.Generator``. ``temperature=0`` makes the prior sample
@@ -63,20 +68,29 @@ from iris_tts_tpu_torch.models.hifigan import (
     iter_stream_windows,
     receptive_radius_frames,
 )
-from iris_tts_tpu_torch.models.layers import init_params
+from iris_tts_tpu_torch.models.layers import (
+    dtype_view,
+    init_params,
+    module_dtype,
+    set_dtype,
+)
 from iris_tts_tpu_torch.models.postnet import PostNet
 from iris_tts_tpu_torch.models.vae import TextConditionedVAE
 from iris_tts_tpu_torch.ops.length import (
     durations_from_log,
+    frame_counts,
     gaussian_upsample,
     length_regulate,
     padding_mask,
+    pick_bucket,
     round_up_to_multiple,
 )
 from iris_tts_tpu_torch.runtime import (
     DeviceLike,
-    pin_f32_math,
+    DtypeLike,
+    pin_math_precision,
     resolve_device,
+    resolve_dtype,
     seeded_generator,
     wrap_int32,
 )
@@ -93,14 +107,6 @@ PHONEME_BUCKETS = (16, 32, 64, 128, 256, 512)
 FRAME_BUCKETS = (128, 192, 256, 384, 512, 768, 1024, 1536, 2048, 3072, 4096)
 
 
-def pick_bucket(n: int, buckets: Sequence[int]) -> int:
-    """Smallest bucket >= n (clamps to the largest bucket)."""
-    for b in buckets:
-        if n <= b:
-            return b
-    return buckets[-1]
-
-
 def mel_time_major(mel, n_mels: int):
     """Normalise a mel to time-major ``[..., T, n_mels]``, accepting the
     reference layout ``[..., n_mels, T]``. A square mel is taken as
@@ -113,6 +119,16 @@ def mel_time_major(mel, n_mels: int):
     return mel
 
 
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A device tensor as numpy on the host, floats as f32: a bf16 tensor
+    crosses at its own width and is widened on the host (numpy has no
+    bf16)."""
+    t = t.cpu()
+    if t.is_floating_point() and t.dtype != torch.float32:
+        t = t.float()
+    return t.numpy()
+
+
 def host_pcm16(audio: np.ndarray) -> np.ndarray:
     """float waveform → int16 PCM on the host, with the same truncation as
     the on-device ``pcm16`` path."""
@@ -121,8 +137,9 @@ def host_pcm16(audio: np.ndarray) -> np.ndarray:
 
 class _Dispatch(NamedTuple):
     """Device results of one synthesis dispatch, not yet on the host:
-    audio rows (float32, or int16 with ``pcm16``), per-row frame counts,
-    the mels when the caller asked for them, and the number of real rows.
+    audio rows (the compute dtype, or int16 with ``pcm16``), per-row frame
+    counts, the mels when the caller asked for them, and the number of real
+    rows.
     ``pcm16`` travels with the handle so the collect cannot misread it."""
 
     audio: torch.Tensor
@@ -179,6 +196,14 @@ def compress_durations(frames: torch.Tensor, total_frames: int):
     return frames, deficit
 
 
+def prior_latent(eps: torch.Tensor, temperature) -> torch.Tensor:
+    """The prior latent ``temperature · eps`` in f32 whatever ``eps``'s
+    dtype: JAX's temperature is a traced f32 scalar, which promotes its
+    compute-dtype draw to f32. A float and a 0-d f32 tensor give the same
+    bits here, so the live path and the exported programs agree."""
+    return temperature * eps.float()
+
+
 def acoustic(model: SynthesisModel, enc, frames, total_frames: int,
              z: torch.Tensor, use_postnet: bool, upsample: str):
     """Frame-rate conditioning (hard length regulation, or Gaussian
@@ -190,18 +215,19 @@ def acoustic(model: SynthesisModel, enc, frames, total_frames: int,
     mel, _ = model.vae.generate(cond, z_prior=z.transpose(1, 2))
     if use_postnet:
         mel = model.postnet(mel)
-    return mel, (frame_mask > 0).sum(dim=1)
+    return mel, frame_counts(frame_mask)
 
 
 def prior_noise(batch: int, latent_dim: int, total_frames: int,
-                down_factor: int, seed: int,
-                device: torch.device) -> torch.Tensor:
+                down_factor: int, seed: int, device: torch.device,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The prior's standard normal noise [B, latent, T/down_factor] from a
-    generator seeded with ``seed`` on ``device``: the draw
-    ``TextConditionedVAE.generate`` makes when it is given no latent."""
+    generator seeded with ``seed`` on ``device``, drawn in f32 and rounded
+    to the compute ``dtype``: the draw ``TextConditionedVAE.generate``
+    makes when it is given no latent."""
     return torch.randn((batch, latent_dim, total_frames // down_factor),
                        generator=seeded_generator(seed, device),
-                       device=device, dtype=torch.float32)
+                       device=device, dtype=torch.float32).to(dtype)
 
 
 def fused_synthesis(model: SynthesisModel, ids: torch.Tensor,
@@ -213,13 +239,15 @@ def fused_synthesis(model: SynthesisModel, ids: torch.Tensor,
     and the vocoder.
 
     Inputs: ids [B,P] int64, lengths [B] int64, eps [B, latent,
-    T/down_factor] f32, temperature (float or 0-d f32 tensor). Outputs:
-    (audio [B, T·hop] f32, mel [B,T,n_mels], n_frames [B], deficit [B]).
-    Nothing in it reads a value back to the host."""
+    T/down_factor] in the model's compute dtype, temperature (float or 0-d
+    f32 tensor). Outputs: (audio [B, T·hop] and mel [B,T,n_mels] in the
+    compute dtype, n_frames [B] int32, deficit [B]). Nothing in it reads a
+    value back to the host."""
     enc, frames, _ = stage_a(model, ids, lengths)
     frames, deficit = compress_durations(frames, total_frames)
     mel, n_frames = acoustic(model, enc, frames, total_frames,
-                             temperature * eps, use_postnet, upsample)
+                             prior_latent(eps, temperature), use_postnet,
+                             upsample)
     return model.hifigan(mel), mel, n_frames, deficit
 
 
@@ -238,6 +266,11 @@ class TTSPipeline:
     # Frame-rate conditioning: "hard" length regulation or "gaussian"
     # upsampling (ops/length.py).
     upsample: str = "hard"
+    # Compute dtype (float32 or bfloat16; params stay float32). Another
+    # dtype than the model's gives this pipeline a view of the model in it
+    # (layers.dtype_view: same parameters), so dataclasses.replace(pipe,
+    # dtype=...) leaves the original pipeline as it was.
+    dtype: torch.dtype = torch.float32
     phoneme_buckets: Tuple[int, ...] = PHONEME_BUCKETS
     frame_buckets: Tuple[int, ...] = FRAME_BUCKETS
     # Fused-path frame budget per phoneme; rows predicted beyond it are
@@ -258,6 +291,9 @@ class TTSPipeline:
         if self.upsample not in UPSAMPLE_MODES:
             raise ValueError(f"upsample={self.upsample!r} is not one of "
                              f"{UPSAMPLE_MODES}")
+        self.dtype = resolve_dtype(self.dtype)
+        if module_dtype(self.model) != self.dtype:
+            self.model = dtype_view(self.model, self.dtype)
 
     # ------------------------------------------------------------------
     # constructors
@@ -285,16 +321,18 @@ class TTSPipeline:
         text_processor: Optional[TextProcessor] = None,
         lexicon_path: Optional[Union[str, Path]] = None,
         use_postnet: bool = True,
+        dtype: DtypeLike = None,
     ) -> "TTSPipeline":
         """Seeded random-weight pipeline (flax-matching init distributions)
-        on ``device`` (default: the CUDA device; raises without one)."""
+        on ``device`` (default: the CUDA device; raises without one),
+        computing in ``dtype`` (default float32; params stay float32)."""
         device = resolve_device(device)
         config, vocab, text_processor = cls._prepare(
             config, vocab, text_processor, lexicon_path)
         model = SynthesisModel(config)
         init_params(model, seeded_generator(seed, "cpu"))
         return cls._assemble(config, model, vocab, text_processor, device,
-                             use_postnet, seed)
+                             use_postnet, seed, dtype=dtype)
 
     @classmethod
     def from_jax_params(
@@ -307,16 +345,17 @@ class TTSPipeline:
         lexicon_path: Optional[Union[str, Path]] = None,
         use_postnet: bool = True,
         seed: int = 1337,
+        dtype: DtypeLike = None,
     ) -> "TTSPipeline":
         """Pipeline from the JAX ``TTSPipeline.params`` tree with numpy
-        leaves (see ``convert/from_jax.py``)."""
+        leaves (see ``convert/from_jax.py``), computing in ``dtype``."""
         device = resolve_device(device)
         config, vocab, text_processor = cls._prepare(
             config, vocab, text_processor, lexicon_path)
         model = SynthesisModel(config)
         model.load_state_dict(state_dict_from_jax(params, model), strict=True)
         return cls._assemble(config, model, vocab, text_processor, device,
-                             use_postnet, seed)
+                             use_postnet, seed, dtype=dtype)
 
     @classmethod
     def from_checkpoints(
@@ -331,9 +370,11 @@ class TTSPipeline:
         lexicon_path: Optional[Union[str, Path]] = None,
         device: DeviceLike = None,
         seed: int = 1337,
+        dtype: DtypeLike = None,
     ) -> "TTSPipeline":
         """Assemble the inference pipeline from the training stages' port
-        checkpoints (``train/stages.py`` layout), best state first.
+        checkpoints (``train/stages.py`` layout), best state first,
+        computing in ``dtype``.
 
         ``config`` defaults to the one recorded beside the VAE checkpoints.
         ``hifigan_gan_checkpoint`` is the GAN stage's directory; its EMA
@@ -377,22 +418,26 @@ class TTSPipeline:
             sd.update({f"hifigan.{k}": v for k, v in gen_params.items()})
         model.load_state_dict(sd, strict=True)
         return cls._assemble(config, model, vocab, text_processor, device,
-                             postnet_checkpoint is not None, seed)
+                             postnet_checkpoint is not None, seed,
+                             dtype=dtype)
 
     @classmethod
     def _assemble(cls, config, model, vocab, text_processor, device,
-                  use_postnet, seed, upsample="hard") -> "TTSPipeline":
+                  use_postnet, seed, upsample="hard",
+                  dtype: DtypeLike = None) -> "TTSPipeline":
         if config.hifigan.total_upsample != config.audio.hop_length:
             raise ValueError(
                 f"HiFiGAN upsamples by {config.hifigan.total_upsample} but "
                 f"hop_length is {config.audio.hop_length}")
-        pin_f32_math()
-        model = model.to(device).eval()
+        pin_math_precision()
+        dtype = resolve_dtype(dtype)
+        model = set_dtype(model.to(device).eval(), dtype)
         for p in model.parameters():
             p.requires_grad_(False)
         return cls(config=config, model=model, vocab=vocab,
                    text_processor=text_processor, device=device,
-                   use_postnet=use_postnet, seed=seed, upsample=upsample)
+                   use_postnet=use_postnet, seed=seed, upsample=upsample,
+                   dtype=dtype)
 
     # ------------------------------------------------------------------
     # deployable directory
@@ -407,7 +452,9 @@ class TTSPipeline:
 
         ``half=True`` stores the floating tensors as float16 (about half
         the bytes; raises ``ValueError`` for a tensor outside float16's
-        range); :meth:`load` casts them back to float32.
+        range); :meth:`load` casts them back to float32. The params are
+        f32 whatever the compute dtype, and the compute dtype is not
+        stored: :meth:`load` takes it, as the JAX package's does.
 
         The format is the port's own: this package does not read the orbax
         directories the JAX package's ``save`` writes, and the JAX package
@@ -447,9 +494,11 @@ class TTSPipeline:
         path: Union[str, Path],
         lexicon_path: Optional[Union[str, Path]] = None,
         device: DeviceLike = None,
+        dtype: DtypeLike = None,
     ) -> "TTSPipeline":
         """Load a directory written by :meth:`save` onto ``device``
-        (default: the CUDA device; raises without one). Raises
+        (default: the CUDA device; raises without one), computing in
+        ``dtype`` (default float32). Raises
         ``ValueError`` naming the tensor when a stored tensor is missing,
         extra, or of another shape than the config builds."""
         from iris_tts_tpu_torch.train.checkpoint import load_params
@@ -481,7 +530,7 @@ class TTSPipeline:
         pipe = cls._assemble(config, model, vocab, text_processor, device,
                              meta.get("use_postnet", True),
                              meta.get("seed", 1337),
-                             meta.get("upsample", "hard"))
+                             meta.get("upsample", "hard"), dtype=dtype)
         pipe.fused_frames_per_phoneme = int(meta.get(
             "fused_frames_per_phoneme", pipe.fused_frames_per_phoneme))
         if "fused_overflow_tolerance" in meta:
@@ -500,7 +549,8 @@ class TTSPipeline:
     def _prior_noise(self, batch: int, total_frames: int,
                      seed: int) -> torch.Tensor:
         return prior_noise(batch, self.config.vae.latent_dim, total_frames,
-                           self.config.vae.down_factor, seed, self.device)
+                           self.config.vae.down_factor, seed, self.device,
+                           self.dtype)
 
     def _acoustic(self, enc, frames, seed: int, total_frames: int,
                   temperature: float):
@@ -508,7 +558,8 @@ class TTSPipeline:
         (mel [B,T,n_mels], per-row frame counts [B])."""
         eps = self._prior_noise(enc.shape[0], total_frames, seed)
         return acoustic(self.model, enc, frames, total_frames,
-                        temperature * eps, self.use_postnet, self.upsample)
+                        prior_latent(eps, temperature), self.use_postnet,
+                        self.upsample)
 
     def _vocode_device(self, mel: torch.Tensor) -> torch.Tensor:
         return self.model.hifigan(mel)
@@ -692,13 +743,11 @@ class TTSPipeline:
         count × hop → (waveforms, mels or None)."""
         hop = self.config.hifigan.total_upsample
         n_np = disp.n_frames.cpu().numpy().astype(np.int64)
-        audio_np = disp.audio.cpu().numpy()
-        audio_np = audio_np.astype(np.int16 if disp.pcm16 else np.float32,
-                                   copy=False)
+        audio_np = to_host(disp.audio)
         outs = [a[: int(k) * hop] for a, k in zip(audio_np[:disp.n], n_np)]
         mels = None
         if disp.mel is not None:
-            mel_np = disp.mel.cpu().numpy()
+            mel_np = to_host(disp.mel)
             mels = [m[: int(k)] for m, k in zip(mel_np[:disp.n], n_np)]
         return outs, mels
 
@@ -768,7 +817,7 @@ class TTSPipeline:
         mel, n_frames = self._acoustic(enc, frames, self._next_seed(seed),
                                        t_bucket, temperature)
         n_np = n_frames.cpu().numpy().astype(np.int64)
-        mel_np = mel.cpu().numpy()
+        mel_np = to_host(mel)
         outs = [m[: int(k)] for m, k in zip(mel_np, n_np)]
         return outs[0] if single else outs
 
@@ -782,14 +831,15 @@ class TTSPipeline:
     def vocode(self, mel) -> np.ndarray:
         """Log-mel → waveform (numpy f32). Accepts time-major [T, n_mels]
         / [B, T, n_mels] or reference layout [n_mels, T] / [B, n_mels, T],
-        as numpy or as a tensor; a tensor already on the device stays
-        there."""
+        as numpy or as a tensor of any float dtype (cast to f32, then to
+        the compute dtype at the vocoder's first layer); a tensor already on
+        the device stays there."""
         mel = self._mel_tensor(mel)
         squeeze = mel.ndim == 2
         if squeeze:
             mel = mel[None]
         mel = mel_time_major(mel, self.config.hifigan.in_channels)
-        audio = self._vocode_device(mel.contiguous()).cpu().numpy()
+        audio = to_host(self._vocode_device(mel.contiguous()))
         return audio[0] if squeeze else audio
 
     @torch.inference_mode()
@@ -841,7 +891,7 @@ class TTSPipeline:
             block = self._vocode_window(mel[None, w0:w0 + window],
                                         start_cl_f * up, chunk_samples,
                                         pcm16)
-            block_np = block.cpu().numpy()[0]
+            block_np = to_host(block)[0]
             off = (start_f - start_cl_f) * up
             yield block_np[off:off + (b - a) * up]
 
@@ -1010,7 +1060,7 @@ class TTSPipeline:
         moves both out of the first live request of that shape. PyTorch
         keeps those plans per thread, so run the warmup on the thread that
         will serve (``DynamicBatcher.start`` does). (TF32 and
-        ``cudnn.benchmark`` stay off: ``runtime.pin_f32_math``.)
+        ``cudnn.benchmark`` stay off: ``runtime.pin_math_precision``.)
 
         ``batch_sizes`` defaults to ``(1,)``: the serving batcher sends only
         single-utterance groups down the fused path."""

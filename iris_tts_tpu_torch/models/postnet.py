@@ -6,7 +6,9 @@ residually to the input mel. BatchNorm follows flax with Keras' settings
 (momentum 0.99, eps 1e-3): at inference it normalises by the running
 statistics; in training (``use_running_average=False``) by the batch's own
 statistics over (B, T), and it updates the running statistics by flax's
-rule (see :class:`BatchNorm`).
+rule (see :class:`BatchNorm`). ``dtype`` is the compute dtype
+(``models/layers.py``); BatchNorm's statistics and running averages stay
+f32 in any dtype, as flax's ``BatchNorm(dtype=bfloat16)`` keeps them.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 import torch.nn as nn
 
 from iris_tts_tpu_torch.config import PostNetConfig
-from iris_tts_tpu_torch.models.layers import Conv1d, dropout
+from iris_tts_tpu_torch.models.layers import Conv1d, dropout, set_dtype
 
 
 class BatchNorm(nn.BatchNorm1d):
@@ -29,12 +31,14 @@ class BatchNorm(nn.BatchNorm1d):
     ``ra = momentum·ra + (1 − momentum)·batch`` with that biased variance;
     ``torch.nn.BatchNorm1d`` would blend in the unbiased variance instead,
     and converted statistics would drift from the JAX ones step by step.
-    The mode is an argument, not ``self.training``, as in flax."""
+    The mode is an argument, not ``self.training``, as in flax. The
+    normalisation runs in f32 and its output is cast to ``dtype``."""
 
     def __init__(self, channels: int, momentum: float = 0.99,
-                 eps: float = 1e-3):
+                 eps: float = 1e-3, dtype: torch.dtype = torch.float32):
         super().__init__(channels, eps=eps, momentum=1.0 - momentum)
         self.flax_momentum = momentum
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor,
                 use_running_average: bool = True) -> torch.Tensor:
@@ -51,12 +55,14 @@ class BatchNorm(nn.BatchNorm1d):
                 self.running_var.mul_(m).add_((1.0 - m) * var.detach())
                 self.num_batches_tracked.add_(1)
         inv = torch.rsqrt(var + self.eps)[None, :, None]
-        y = (x - mean[None, :, None]) * inv
-        return y * self.weight[None, :, None] + self.bias[None, :, None]
+        y = (x.float() - mean[None, :, None]) * inv
+        y = y * self.weight[None, :, None] + self.bias[None, :, None]
+        return y.to(self.dtype)
 
 
 class PostNet(nn.Module):
-    def __init__(self, config: PostNetConfig = PostNetConfig()):
+    def __init__(self, config: PostNetConfig = PostNetConfig(),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_hidden = config.num_layers - 1
         self.dropout = config.dropout
@@ -68,6 +74,7 @@ class PostNet(nn.Module):
             c = config.channels
         self.conv_out = Conv1d(c, config.n_mels, config.kernel_size)
         self.bn_out = BatchNorm(config.n_mels)
+        set_dtype(self, dtype)
 
     def forward(self, mel: torch.Tensor, deterministic: bool = True,
                 use_running_average: bool = True,

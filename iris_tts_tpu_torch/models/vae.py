@@ -9,6 +9,14 @@ methods take and return the JAX package's time-major ``[B, T, C]``.
 
 Flax ``nn.gelu`` is the tanh approximation, hence ``approximate="tanh"``
 throughout.
+
+``dtype`` is the compute dtype of every submodule (``models/layers.py``).
+The posterior and prior noise is drawn in f32 from the explicit generator
+and rounded to the compute dtype, where JAX draws it in that dtype
+(``vae.py:335,374``); the two packages' draws differ anyway. ``remat=True``
+recomputes each WaveNet block's activations in the backward pass
+(``layers.checkpoint_block``, dropout masks replayed), as the JAX VAE's
+``nn.remat`` blocks do; with gradients off it changes nothing.
 """
 
 from __future__ import annotations
@@ -20,7 +28,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from iris_tts_tpu_torch.config import VAEConfig
-from iris_tts_tpu_torch.models.layers import Conv1d, Dense, dropout
+from iris_tts_tpu_torch.models.layers import (
+    Conv1d,
+    Dense,
+    checkpoint_block,
+    dropout,
+    set_dtype,
+)
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -30,9 +44,10 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 class FiLM(nn.Module):
     """y = gamma(cond) * x + beta(cond), on ``[B, C, T]``."""
 
-    def __init__(self, cond_dim: int, channels: int):
+    def __init__(self, cond_dim: int, channels: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.proj = Dense(cond_dim, 2 * channels)
+        self.proj = Dense(cond_dim, 2 * channels, dtype=dtype)
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
         gamma, beta = self.proj.forward_ct(cond).chunk(2, dim=1)
@@ -43,12 +58,14 @@ class WaveNetResBlock(nn.Module):
     """x + res_proj(dropout(FiLM(gelu(dilated_conv(x)), cond)))."""
 
     def __init__(self, channels: int, cond_dim: int, kernel_size: int,
-                 dilation: int, dropout: float = 0.0):
+                 dilation: int, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dropout = dropout
         self.conv = Conv1d(channels, channels, kernel_size, dilation=dilation)
         self.film = FiLM(cond_dim, channels)
         self.res_proj = Conv1d(channels, channels, 1)
+        set_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor,
                 deterministic: bool = True,
@@ -63,13 +80,13 @@ class TemporalDownsample(nn.Module):
     An odd total pad goes on the right, as XLA's 'SAME' puts it."""
 
     def __init__(self, in_channels: int, channels: int, num_stages: int = 2,
-                 kernel_size: int = 5):
+                 kernel_size: int = 5, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_stages = num_stages
         for i in range(num_stages):
             self.add_module(f"conv_{i}", Conv1d(
                 in_channels if i == 0 else channels, channels, kernel_size,
-                stride=2))
+                stride=2, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.num_stages):
@@ -81,12 +98,12 @@ class TemporalUpsample(nn.Module):
     """num_stages × [repeat-2× → conv → GELU]."""
 
     def __init__(self, channels: int, num_stages: int = 2,
-                 kernel_size: int = 5):
+                 kernel_size: int = 5, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_stages = num_stages
         for i in range(num_stages):
             self.add_module(f"conv_{i}", Conv1d(channels, channels,
-                                                kernel_size))
+                                                kernel_size, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.num_stages):
@@ -99,13 +116,15 @@ class APCoupling(nn.Module):
     """Additive coupling (volume-preserving) with a FiLM-modulated
     translation; the output conv is zero-initialised."""
 
-    def __init__(self, channels: int, hidden_channels: int, cond_dim: int):
+    def __init__(self, channels: int, hidden_channels: int, cond_dim: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         half = channels // 2
         self.cond_proj = Dense(cond_dim, half)
         self.net_pre = Conv1d(half, hidden_channels, 3)
         self.net_post = Conv1d(hidden_channels, half, 1, init="zeros")
         self.film = FiLM(half, half)
+        set_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor,
                 reverse: bool = False) -> torch.Tensor:
@@ -121,12 +140,12 @@ class VolumePreservingFlow(nn.Module):
     """Stack of additive couplings; exactly invertible."""
 
     def __init__(self, channels: int, num_layers: int, hidden_channels: int,
-                 cond_dim: int):
+                 cond_dim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
             self.add_module(f"ap_{i}", APCoupling(channels, hidden_channels,
-                                                  cond_dim))
+                                                  cond_dim, dtype))
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor,
                 reverse: bool = False) -> torch.Tensor:
@@ -146,9 +165,11 @@ class TextConditionedVAE(nn.Module):
     """Triple-conditioned VAE: ``forward`` is the training path,
     ``generate`` the inference path."""
 
-    def __init__(self, config: VAEConfig = VAEConfig()):
+    def __init__(self, config: VAEConfig = VAEConfig(),
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         cfg = self.config = config
+        self.remat = remat
         c, k = cfg.model_channels, cfg.wavenet_kernel_size
         self.in_proj = Conv1d(cfg.n_mels, c, 1)
         for i in range(cfg.num_wavenet_blocks):
@@ -168,6 +189,16 @@ class TextConditionedVAE(nn.Module):
         self.upsample = TemporalUpsample(c, cfg.down_stages, 5)
         self.out_proj = Conv1d(c, cfg.n_mels, 1)
         self.residual_proj = Dense(c, cfg.cond_dim)
+        set_dtype(self, dtype)
+
+    def _block(self, name: str, x, cond, deterministic, generator):
+        """One WaveNet block, under remat when it is on and gradients are
+        recorded."""
+        block = getattr(self, name)
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint_block(block, x, cond, deterministic,
+                                    generator=generator)
+        return block(x, cond, deterministic, generator)
 
     def latent_cond(self, frame_cond_ct: torch.Tensor) -> torch.Tensor:
         """Frame-rate cond [B, cond, T] → latent-rate cond [B, C, T']."""
@@ -181,8 +212,8 @@ class TextConditionedVAE(nn.Module):
         [B, cond, T])."""
         d = self.latent_dec_proj.forward_ct(z_ct)
         for i in range(self.config.decoder_blocks):
-            d = getattr(self, f"dec_block_{i}")(d, lat_cond, deterministic,
-                                                generator)
+            d = self._block(f"dec_block_{i}", d, lat_cond, deterministic,
+                            generator)
         d_up = self.upsample(d)
         return self.out_proj(d_up), self.residual_proj.forward_ct(d_up)
 
@@ -212,8 +243,8 @@ class TextConditionedVAE(nn.Module):
         cfg = self.config
         h = self.in_proj(mel.transpose(1, 2))
         for i in range(cfg.num_wavenet_blocks):
-            h = getattr(self, f"enc_block_{i}")(h, frame_cond.transpose(1, 2),
-                                                deterministic, generator)
+            h = self._block(f"enc_block_{i}", h, frame_cond.transpose(1, 2),
+                            deterministic, generator)
         lat_cond = self.latent_cond(frame_cond.transpose(1, 2))
         lat_h = self.downsample(h)
         mean = self.latent_mean_proj.forward_ct(lat_h)
@@ -223,7 +254,7 @@ class TextConditionedVAE(nn.Module):
         else:
             if eps is None:
                 eps = torch.randn(mean.shape, generator=generator,
-                                  device=mean.device, dtype=mean.dtype)
+                                  device=mean.device).to(mean.dtype)
             else:
                 eps = eps.transpose(1, 2)
             z = reparameterize(mean, logvar, eps)
@@ -260,7 +291,7 @@ class TextConditionedVAE(nn.Module):
             b, tp = lat_cond.shape[0], lat_cond.shape[2]
             z = temperature * torch.randn(
                 (b, self.config.latent_dim, tp), generator=generator,
-                device=lat_cond.device, dtype=lat_cond.dtype)
+                device=lat_cond.device).to(lat_cond.dtype)
         else:
             z = z_prior.transpose(1, 2)
         z = self.vpflow(z, lat_cond, reverse=True)

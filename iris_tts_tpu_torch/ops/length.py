@@ -7,7 +7,7 @@ durations never leave the device.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
@@ -26,7 +26,9 @@ def length_regulate(
             ``sum(durations)`` gather the last valid phoneme and are masked.
 
     Returns:
-        frames [B, T, E] and frame_mask [B, T] (1.0 where the frame is real).
+        frames [B, T, E] and frame_mask [B, T] (1.0 where the frame is real),
+        both in ``encoder_output``'s dtype. Count frames from the mask in an
+        integer dtype: a bf16 sum of 701 ones is 700.
     """
     b, p, e = encoder_output.shape
     ends = torch.cumsum(durations.to(torch.int64), dim=-1)  # [B, P]
@@ -52,7 +54,9 @@ def gaussian_upsample(
     """Soft length regulation (Gaussian upsampling): frames [B, T, E] and
     frame_mask [B, T]. Attention energy is −temperature·(t + 0.5 − c_p)²
     against each phoneme centre; padding phonemes (duration 0) are masked
-    out of the softmax."""
+    out of the softmax. The attention is f32, so the frames come out in f32
+    (as JAX's einsum promotes a bf16 ``encoder_output``); the mask is in
+    ``encoder_output``'s dtype."""
     durations = durations.to(torch.float32)
     ends = torch.cumsum(durations, dim=-1)
     centers = ends - durations / 2.0
@@ -63,15 +67,31 @@ def gaussian_upsample(
     energy = torch.where(durations[:, None, :] > 0, energy,
                          torch.full_like(energy, -1e9))
     attn = torch.softmax(energy, dim=-1)
-    frames = torch.einsum("btp,bpe->bte", attn, encoder_output)
+    frames = torch.einsum("btp,bpe->bte", attn,
+                          encoder_output.to(torch.promote_types(
+                              attn.dtype, encoder_output.dtype)))
     frame_mask = (t[..., 0] < total).to(encoder_output.dtype)
     return frames * frame_mask[..., None], frame_mask
+
+
+def frame_counts(frame_mask: torch.Tensor) -> torch.Tensor:
+    """Real frames per row of a [B, T] frame mask, as int32: summed in an
+    integer dtype, never in the mask's own (bf16 rounds counts above 256)."""
+    return (frame_mask > 0).sum(dim=1, dtype=torch.int32)
 
 
 def padding_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     """Boolean mask [B, max_len], True where position < length."""
     positions = torch.arange(max_len, device=lengths.device)[None, :]
     return positions < lengths[:, None]
+
+
+def pick_bucket(n: int, buckets: Sequence[int]) -> int:
+    """Smallest bucket >= n (clamps to the largest bucket)."""
+    for b in buckets:
+        if n <= b:
+            return b
+    return buckets[-1]
 
 
 def round_up_to_multiple(n: int, multiple: int) -> int:

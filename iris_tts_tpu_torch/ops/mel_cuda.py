@@ -33,6 +33,7 @@ import torch
 
 from iris_tts_tpu_torch.config import AudioConfig
 from iris_tts_tpu_torch.ops.stft import (
+    log_mel_dtype,
     log_mel_spectrogram_plain,
     mel_filterbank,
     num_frames,
@@ -165,10 +166,13 @@ def _device_tables(cfg: AudioConfig, device: torch.device):
 
 def log_mel_cuda(audio: torch.Tensor,
                  cfg: AudioConfig = AudioConfig()) -> torch.Tensor:
-    """audio [..., N] → log-mel [..., 1 + N//hop, n_mels], f32.
+    """audio [..., N] → log-mel [..., 1 + N//hop, n_mels], in
+    ``stft.log_mel_dtype(audio)`` (bf16 for bf16 audio, else f32).
 
     CUDA tensor: one launch of the kernel for the whole batch (counted in
-    ``log_mel_cuda.launches``); raises for a config the kernel does not take
+    ``log_mel_cuda.launches``); the kernel reads f32 audio and writes an f32
+    log-mel, as the Pallas kernel does, and the wrapper casts on both
+    sides. It raises for a config the kernel does not take
     (:func:`kernel_tables`). CPU tensor: the plain version. Any other device
     raises."""
     if audio.device.type == "cpu":
@@ -182,7 +186,7 @@ def log_mel_cuda(audio: torch.Tensor,
     out = torch.empty((b, t, cfg.n_mels), device=audio.device,
                       dtype=torch.float32)
     if b == 0:
-        return out.reshape(*lead, t, cfg.n_mels)
+        return out.reshape(*lead, t, cfg.n_mels).to(log_mel_dtype(audio))
     lib = _library()
     with torch.cuda.device(audio.device):
         stream = torch.cuda.current_stream(audio.device).cuda_stream
@@ -197,7 +201,7 @@ def log_mel_cuda(audio: torch.Tensor,
             + lib.iris_cuda_error_string(code).decode()
         )
     log_mel_cuda.launches += 1
-    return out.reshape(*lead, t, cfg.n_mels)
+    return out.reshape(*lead, t, cfg.n_mels).to(log_mel_dtype(audio))
 
 
 log_mel_cuda.launches = 0

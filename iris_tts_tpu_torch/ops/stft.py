@@ -10,6 +10,13 @@ own copies. :func:`log_mel_spectrogram_plain` is the plain PyTorch version
 smoke run hold the CUDA kernel (``ops/mel_cuda.py``) against.
 :func:`log_mel_spectrogram` is the entry point: the kernel for a CUDA
 tensor, the plain version for a CPU tensor.
+
+Dtypes, as the JAX package's: the log-mel comes back in the audio's dtype
+when that is float16 or bfloat16, and in f32 otherwise. The kernel and the
+plain version compute in f32 and cast the result (the Pallas kernel too is
+f32 inside). The ``impl="xla"`` composition follows JAX's ``impl="xla"``
+step by step: its magnitude is rounded to the audio's dtype before the
+mel projection, as ``stft_magnitude_matmul`` casts it.
 """
 
 from __future__ import annotations
@@ -149,35 +156,74 @@ def frame_signal(audio: torch.Tensor, n_fft: int, hop_length: int,
 
 
 @functools.lru_cache(maxsize=8)
-def _plain_constants(cfg: AudioConfig, device: torch.device):
-    real, imag = dft_matrices(cfg.n_fft, cfg.win_length)
-    fb = mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin,
-                        cfg.fmax)
-    return tuple(torch.from_numpy(a).to(device) for a in (real, imag, fb))
+def _dft_tensors(n_fft: int, win_length: int, device: torch.device):
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in dft_matrices(n_fft, win_length))
+
+
+@functools.lru_cache(maxsize=8)
+def _filterbank_tensor(cfg: AudioConfig, device: torch.device):
+    return torch.from_numpy(mel_filterbank(
+        cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax)).to(device)
+
+
+def log_mel_dtype(audio: torch.Tensor) -> torch.dtype:
+    """The dtype of a feature of ``audio`` (magnitude, log-mel): a
+    half-precision audio dtype (float16, bfloat16) carries over, anything
+    else gives f32."""
+    if audio.dtype in (torch.float16, torch.bfloat16):
+        return audio.dtype
+    return torch.float32
+
+
+def _magnitude_f32(audio: torch.Tensor, n_fft: int, hop_length: int,
+                   win_length: int, pad_mode: str) -> torch.Tensor:
+    """|STFT| in f32 by windowed-DFT matmuls, floored under the root:
+    ``sqrt(re² + im² + 1e-12)`` (the JAX package's XLA path keeps the same
+    1e-12 floor, which bounds the gradient at a silent bin)."""
+    frames = frame_signal(audio.to(torch.float32), n_fft, hop_length,
+                          pad_mode)
+    real, imag = _dft_tensors(n_fft, win_length, frames.device)
+    re = frames @ real
+    im = frames @ imag
+    return torch.sqrt(re * re + im * im + 1e-12)
+
+
+def stft_magnitude_matmul(audio: torch.Tensor, n_fft: int = 1024,
+                          hop_length: int = 256, win_length: int = 1024,
+                          pad_mode: str = "constant") -> torch.Tensor:
+    """|STFT| via windowed-DFT matmuls: audio [..., N] → [..., T, n_freqs],
+    computed in f32 and returned in :func:`log_mel_dtype`."""
+    return _magnitude_f32(audio, n_fft, hop_length, win_length,
+                          pad_mode).to(log_mel_dtype(audio))
+
+
+def _log_mel_of(mag: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
+    """f32 magnitude → ``log(max(mag @ fb, log_clip_min))`` in f32."""
+    fb = _filterbank_tensor(cfg, mag.device)
+    return torch.log(torch.clamp(mag.float() @ fb, min=cfg.log_clip_min))
 
 
 def log_mel_spectrogram_plain(audio: torch.Tensor,
                               cfg: AudioConfig = AudioConfig()
                               ) -> torch.Tensor:
-    """audio [..., N] → log-mel [..., T, n_mels] in f32: frames @ windowed
-    DFT → ``sqrt(re² + im² + 1e-12)`` (the JAX package's XLA path keeps the
-    same 1e-12 floor) → @ mel filterbank → ``log(max(·, log_clip_min))``.
+    """audio [..., N] → log-mel [..., T, n_mels]: frames @ windowed DFT →
+    floored magnitude → @ mel filterbank → ``log(max(·, log_clip_min))``,
+    all in f32, then cast to :func:`log_mel_dtype` as the kernel's wrapper
+    casts.
 
     Runs on any device, in full f32 on the card only with TF32 matmuls off
     (``torch.backends.cuda.matmul.allow_tf32``, False by default)."""
-    audio = audio.to(torch.float32)
-    frames = frame_signal(audio, cfg.n_fft, cfg.hop_length, cfg.pad_mode)
-    real, imag, fb = _plain_constants(cfg, audio.device)
-    re = frames @ real
-    im = frames @ imag
-    mag = torch.sqrt(re * re + im * im + 1e-12)
-    return torch.log(torch.clamp(mag @ fb, min=cfg.log_clip_min))
+    mag = _magnitude_f32(audio, cfg.n_fft, cfg.hop_length, cfg.win_length,
+                         cfg.pad_mode)
+    return _log_mel_of(mag, cfg).to(log_mel_dtype(audio))
 
 
 def log_mel_spectrogram(audio: torch.Tensor,
                         cfg: AudioConfig = AudioConfig(),
                         impl: Optional[str] = None) -> torch.Tensor:
-    """audio [..., N] → log-mel [..., T, n_mels] (f32, time-major).
+    """audio [..., N] → log-mel [..., T, n_mels] (time-major; dtype:
+    :func:`log_mel_dtype`).
 
     ``impl=None``: a CUDA tensor goes through the hand-written kernel
     (:func:`~iris_tts_tpu_torch.ops.mel_cuda.log_mel_cuda`), which raises if
@@ -198,3 +244,4 @@ def log_mel_spectrogram(audio: torch.Tensor,
     from iris_tts_tpu_torch.ops.mel_cuda import log_mel_cuda
 
     return log_mel_cuda(audio, cfg)
+

@@ -13,31 +13,40 @@ stays on the host; the exported vocab maps text to ids at the edge.
 Artifact layout (one directory):
     synth_b{B}_p{P}.pt2    the fused function per (batch, phoneme) bucket:
                            (ids [B,P] int64, lengths [B] int64,
-                           eps [B, latent_dim, T/down_factor] f32,
+                           eps [B, latent_dim, T/down_factor] (dtype),
                            temperature [] f32) →
-                           (audio [B, T·hop] f32, mel [B,T,n_mels],
-                           n_frames [B], deficit [B])
+                           (audio [B, T·hop] (dtype), mel [B,T,n_mels]
+                           (dtype), n_frames [B] int32, deficit [B])
     vocwin_c{C}_x{X}.pt2   optional streaming-vocoder window:
                            (mel [1, window, n_mels] f32, start [] int64) →
-                           audio [1, C·hop] f32
+                           audio [1, C·hop] (dtype)
     vocab.json             phoneme → id table for the host frontend
-    manifest.json          format version, shapes, ladders, device
+    manifest.json          format version, shapes, ladders, device, and
+                           the compute dtype ("dtype": the pipeline's,
+                           baked into the programs, as the JAX package
+                           bakes ``pipe.dtype``)
 
 The prior noise is an input: a ``torch.Generator`` cannot be one, and its
 draws depend on the shape drawn. The host side draws the live fused path's
 noise (``models/pipeline.prior_noise``) at the live frame budget, which the
 manifest's ladder gives, into the front of the bucket's ``eps`` and leaves
-the tail zero; the tail's frames are masked. So the artifact reproduces the
-live fused path at any temperature whenever the kept frames end at least a
-receptive field before the live budget (nothing compressed, and the usual
-headroom of ``fused_frames_per_phoneme``); a row compressed to the live
-budget differs in its last frames, where the live path sees padding and
-the program sees the bucket's longer tail.
+the tail zero; the tail's frames are masked. The noise is drawn in f32 and
+rounded to the compute dtype, as the live path feeds it. So the artifact
+reproduces the live fused path at any temperature whenever the kept frames
+end at least a receptive field before the live budget (nothing compressed,
+and the usual headroom of ``fused_frames_per_phoneme``); a row compressed
+to the live budget differs in its last frames, where the live path sees
+padding and the program sees the bucket's longer tail.
 
 Ids and lengths are int64 here, where the JAX artifacts take int32. The
 programs bake device literals (``torch.arange(..., device=...)``), so
 export on the device that will serve; a loader on another device type
 moves the program with ``torch.export.passes.move_to_device_pass``.
+
+Capture and replay take separate locks: a request to a bucket whose graph
+is captured replays while another bucket is being captured on the
+progressive-warmup thread, as a compiled JAX executable runs while the
+compile thread works on the next.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ import contextlib
 import json
 import logging
 import threading
+import time
 from pathlib import Path
 from types import SimpleNamespace
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -66,12 +76,15 @@ from iris_tts_tpu_torch.models.pipeline import (
     mel_time_major,
     pick_bucket,
     prior_noise,
+    to_host,
 )
 from iris_tts_tpu_torch.ops.length import round_up_to_multiple
 from iris_tts_tpu_torch.runtime import (
     DeviceLike,
-    pin_f32_math,
+    dtype_name,
+    pin_math_precision,
     resolve_device,
+    resolve_dtype,
     wrap_int32,
 )
 from iris_tts_tpu_torch.text.frontend import (
@@ -178,7 +191,8 @@ def export_pipeline(
 
     Args:
         pipe: a ready ``TTSPipeline``; its weights go into every program,
-            and its device is the one the programs serve on.
+            its device is the one the programs serve on, and its compute
+            dtype is the programs' (recorded in the manifest).
         batch_sizes / phoneme_buckets: the grid to export (default phoneme
             buckets: the pipeline's). Each pair is one program whose frame
             budget is the pipeline's fused budget for the full bucket,
@@ -208,6 +222,7 @@ def export_pipeline(
         "fused_frames_per_phoneme": pipe.fused_frames_per_phoneme,
         "frame_buckets": list(pipe.frame_buckets),
         "upsample": pipe.upsample,
+        "dtype": dtype_name(pipe.dtype),
         "entries": [],
     }
     with _device_mode():
@@ -218,7 +233,8 @@ def export_pipeline(
                     torch.full((b, p), pipe.vocab.pad_id, dtype=torch.int64,
                                device=dev),
                     torch.full((b,), p, dtype=torch.int64, device=dev),
-                    torch.zeros((b, latent, t // factor), device=dev),
+                    torch.zeros((b, latent, t // factor), device=dev,
+                                dtype=pipe.dtype),
                     torch.tensor(1.0, device=dev),
                 )
                 name = f"synth_b{b}_p{p}.pt2"
@@ -300,6 +316,12 @@ def _pick_bucket(progs, n_rows: int, max_len: int) -> Tuple[int, int]:
     return b_bucket, p_bucket
 
 
+def manifest_dtype(manifest: Dict) -> torch.dtype:
+    """The programs' compute dtype (float32 for an artifact that predates
+    the key)."""
+    return resolve_dtype(manifest.get("dtype", "float32"))
+
+
 def live_frame_budget(manifest: Dict, max_len: int) -> int:
     """The live fused path's frame budget for a request whose longest
     utterance has ``max_len`` ids (``TTSPipeline._fused_frame_budget``
@@ -314,7 +336,7 @@ def _request_inputs(manifest: Dict, id_lists: List[np.ndarray], b: int,
                     p: int, pad_id: int, seed: int, device: torch.device):
     """Host ids and lengths of a (B, P) bucket (unused rows: ``pad_id`` and
     length 1) and the live path's prior noise for the real rows [n, latent,
-    T_live/down_factor], drawn on ``device``."""
+    T_live/down_factor], drawn on ``device`` in the programs' dtype."""
     ids = np.full((b, p), pad_id, np.int64)
     lengths = np.ones((b,), np.int64)
     for row, seq in enumerate(id_lists):
@@ -322,7 +344,8 @@ def _request_inputs(manifest: Dict, id_lists: List[np.ndarray], b: int,
         lengths[row] = len(seq)
     t_live = live_frame_budget(manifest, max(len(s) for s in id_lists))
     noise = prior_noise(len(id_lists), int(manifest["latent_dim"]), t_live,
-                        int(manifest["down_factor"]), seed, device)
+                        int(manifest["down_factor"]), seed, device,
+                        manifest_dtype(manifest))
     return ids, lengths, noise
 
 
@@ -343,7 +366,8 @@ def _synth_buffers(entry: Dict, manifest: Dict, pad_id: int,
     return (torch.full((b, p), pad_id, dtype=torch.int64, device=device),
             torch.ones((b,), dtype=torch.int64, device=device),
             torch.zeros((b, int(manifest["latent_dim"]),
-                         t // int(manifest["down_factor"])), device=device),
+                         t // int(manifest["down_factor"])), device=device,
+                        dtype=manifest_dtype(manifest)),
             torch.tensor(1.0, device=device))
 
 
@@ -356,7 +380,7 @@ class ExportedSynthesizer:
     def __init__(self, path: Union[str, Path], text_processor=None,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
-        pin_f32_math()
+        pin_math_precision()
         (_, self.manifest, self.vocab, self.text_processor,
          self._progs) = _load_artifact(path, self.device, text_processor)
 
@@ -375,7 +399,7 @@ class ExportedSynthesizer:
             audio, _mel, n_frames, _deficit = prog(*bufs)
             n = int(n_frames[0])
             hop = int(self.manifest["samples_per_frame"])
-            return audio[0, :n * hop].cpu().numpy()
+            return to_host(audio[0, :n * hop])
 
 
 class _Program:
@@ -402,11 +426,16 @@ class AotPipeline:
     On CUDA, :meth:`warmup` captures each program once as a CUDA graph;
     a request fills the bucket's static inputs, replays the graph and
     copies the outputs to the host. Graphs share one memory pool and
-    replay one at a time under one lock, which capture holds too; a
-    graph's outputs are overwritten by its next replay (and may be by
-    another graph's), so they are copied out under the lock. A capture or
-    replay failure raises: nothing falls back to eager. On the CPU
-    (``device="cpu"``) the programs run as loaded.
+    replay one at a time under the replay lock; a graph's outputs are
+    overwritten by its next replay (and may be by another graph's), so
+    they are copied out under that lock. Captures take a lock of their
+    own, one at a time, and hold the replay lock only for a new graph's
+    first replay: a request to a captured bucket does not wait for a
+    capture in flight (capture mode ``thread_local`` leaves other threads
+    free to launch and copy). A capture or replay failure raises: nothing
+    falls back to eager. On the CPU (``device="cpu"``) the programs run as
+    loaded. ``dtype`` is the programs' compute dtype, from the manifest;
+    audio and mels come back as f32 whatever it is.
 
     Every exported program is the fused path, so there is no two-stage
     redo of over-compressed rows (``fused_fallback_count`` stays 0), as
@@ -419,11 +448,12 @@ class AotPipeline:
                  base_seed: int = 1337, warmup_async: bool = False,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
-        pin_f32_math()
+        pin_math_precision()
         (path, self.manifest, self.vocab, self.text_processor,
          progs) = _load_artifact(path, self.device, text_processor,
                                  defer_frontend=warmup_async)
         m = self.manifest
+        self.dtype = manifest_dtype(m)
         self.hop = int(m["samples_per_frame"])
         # Duck-typed config: the serving stack reads the sample rate.
         self.config = SimpleNamespace(
@@ -449,7 +479,13 @@ class AotPipeline:
         self.seed = base_seed
         self._seed_counter = 0
         self.fused_overflow_count = 0
+        # Replay: fill a bucket's inputs, replay, copy out. Capture: one
+        # capture at a time, and the shared pool. Requests waiting to
+        # capture go before the background warmup's next capture.
         self._lock = threading.Lock()
+        self._capture_lock = threading.Lock()
+        self._waiting = 0
+        self._waiting_lock = threading.Lock()
         self._ready: set = set()
         self._pool = None
         self._warm_all: Optional[threading.Event] = None
@@ -463,38 +499,60 @@ class AotPipeline:
 
     # -- graphs ------------------------------------------------------------
 
-    def _prepare(self, key) -> _Program:
-        """The program of ``key``, captured as a CUDA graph on the first
-        call on CUDA (run once on the CPU). Call with the lock held."""
+    def _prepare(self, key, request: bool = True) -> _Program:
+        """The program of ``key``, captured on its first use under the
+        capture lock: a request to a captured bucket never takes it, and a
+        request to another waits for at most the capture in flight, since
+        the background warmup lets waiting requests go first (``request``
+        is False for its own captures). Call without the replay lock."""
         prog = self._programs[key]
         if key in self._ready:
             return prog
+        if request:
+            with self._waiting_lock:
+                self._waiting += 1
+        try:
+            with self._capture_lock:
+                if key not in self._ready:
+                    self._capture(prog)
+                    self._ready.add(key)
+        finally:
+            if request:
+                with self._waiting_lock:
+                    self._waiting -= 1
+        return prog
+
+    def _capture(self, prog: _Program) -> None:
+        """Capture ``prog`` as a CUDA graph on the shared pool (on the CPU:
+        run it once) and replay it once under the replay lock."""
         with _device_mode():
             if self.device.type != "cuda":
                 prog.run()
-            else:
-                with torch.cuda.device(self.device):
-                    if self._pool is None:
-                        self._pool = torch.cuda.graph_pool_handle()
-                    side = torch.cuda.Stream()
-                    side.wait_stream(torch.cuda.current_stream())
-                    with torch.cuda.stream(side):
-                        for _ in range(_CAPTURE_WARMUP_RUNS):
-                            prog.prog(*prog.inputs)
-                    torch.cuda.current_stream().wait_stream(side)
-                    graph = torch.cuda.CUDAGraph()
-                    with torch.cuda.graph(graph, pool=self._pool,
-                                          capture_error_mode="thread_local"):
-                        outputs = prog.prog(*prog.inputs)
+                return
+            with torch.cuda.device(self.device):
+                if self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    for _ in range(_CAPTURE_WARMUP_RUNS):
+                        prog.prog(*prog.inputs)
+                torch.cuda.current_stream().wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, pool=self._pool,
+                                      capture_error_mode="thread_local"):
+                    outputs = prog.prog(*prog.inputs)
+                # A new graph's temporaries may share the pool with another
+                # graph's: its first replay waits its turn like any other.
+                with self._lock:
                     prog.graph, prog.outputs = graph, outputs
                     graph.replay()
                     torch.cuda.synchronize(self.device)
-        self._ready.add(key)
-        return prog
 
     def _warm_one(self, key) -> None:
-        with self._lock:
-            self._prepare(key)
+        while self._waiting:  # requests waiting to capture go first
+            time.sleep(0.001)
+        self._prepare(key, request=False)
 
     def graph_pool_bytes(self) -> Optional[int]:
         """Bytes the graphs' shared pool has reserved on the card (0 before
@@ -576,8 +634,9 @@ class AotPipeline:
                    return_mel: bool = False, pcm16: bool = False):
         """Text(s) → trimmed waveform(s): ``TTSPipeline.synthesize``'s
         contract as serving uses it. Every program is the fused path, so
-        ``fused`` is ignored. The programs give float32 audio; ``pcm16``
-        quantizes on the host (``host_pcm16``)."""
+        ``fused`` is ignored. Audio comes back as float32 (widened on the
+        host from a bf16 program's); ``pcm16`` quantizes on the host
+        (``host_pcm16``)."""
         del fused
         seed = self._next_seed(seed)
         single = isinstance(text, str)
@@ -589,16 +648,16 @@ class AotPipeline:
         n = len(texts)
         b, p = _pick_bucket(self._entries, n,
                             max(len(i) for i in id_lists))
+        prog = self._prepare((b, p))
         with self._lock, _device_mode():
-            prog = self._prepare((b, p))
             host = _request_inputs(self.manifest, id_lists, b, p,
                                    self.vocab.pad_id, seed, self.device)
             _fill_synth_inputs(prog.inputs, *host, temperature)
             audio, mel, n_frames, deficit = prog.run()
-            audio_np = audio[:n].cpu().numpy()
+            audio_np = to_host(audio[:n])
             n_np = n_frames[:n].cpu().numpy()
             d_np = deficit[:n].cpu().numpy()
-            mel_np = mel[:n].cpu().numpy() if return_mel else None
+            mel_np = to_host(mel[:n]) if return_mel else None
         self.fused_overflow_count += int((d_np > 0).sum())
         outs = [a[: int(k) * self.hop] for a, k in zip(audio_np, n_np)]
         if pcm16:
@@ -633,12 +692,12 @@ class AotPipeline:
         up = self.hop
         for a, b, w0, start_f, start_cl_f in iter_stream_windows(t, chunk,
                                                                  ctx):
+            prog = self._prepare("vocwin")
             with self._lock, _device_mode():
-                prog = self._prepare("vocwin")
                 mel_t, start_t = prog.inputs
                 mel_t.copy_(torch.from_numpy(mel[None, w0:w0 + window]))
                 start_t.fill_(start_cl_f * up)
-                block = prog.run()[0].cpu().numpy()
+                block = to_host(prog.run()[0])
             off = (start_f - start_cl_f) * up
             out = block[off:off + (b - a) * up]
             yield host_pcm16(out) if pcm16 else out

@@ -145,6 +145,11 @@ class CheckpointManager:
         """Restore into ``state`` (same structure) in place, bit-exact."""
         return state.load_state_dict(self.restore_raw(step))
 
+    def restore_best(self, state_template: Any) -> Any:
+        """Restore the best checkpoint (the latest if none is marked best)
+        into ``state_template`` in place, bit-exact."""
+        return state_template.load_state_dict(self.restore_best_raw())
+
     def load_config(self) -> IrisConfig:
         return config_from_json((self.directory / "config.json").read_text())
 

@@ -16,6 +16,11 @@ Gradient boundaries, as in the JAX steps:
   (``requires_grad`` off), so nothing accumulates in their ``.grad``;
 * each side has its own optimizer and train state.
 
+``compute_dtype`` and ``remat`` as in the JAX steps: the generator and the
+discriminators compute in ``compute_dtype`` (params, gradients and Adam
+state stay f32; losses reduce in f32), and ``remat=True`` recomputes each
+HiFiGAN MRF resblock in the backward pass.
+
 Batches: ``{"mel": [B, T, n_mels], "audio": [B, T * hop]}``.
 """
 
@@ -29,12 +34,14 @@ import torch
 import torch.nn as nn
 
 from iris_tts_tpu_torch.config import IrisConfig
+from iris_tts_tpu_torch.models.layers import computing
 from iris_tts_tpu_torch.ops.losses import (
     feature_matching_loss,
     lsgan_discriminator_loss,
     lsgan_generator_loss,
 )
 from iris_tts_tpu_torch.ops.stft import log_mel_spectrogram
+from iris_tts_tpu_torch.runtime import DtypeLike, resolve_dtype
 from iris_tts_tpu_torch.train.state import TrainState
 from iris_tts_tpu_torch.train.steps import _accumulated_grads
 
@@ -83,20 +90,27 @@ def gen_loss(gen: nn.Module, disc: nn.Module, batch, cfg: IrisConfig):
                    "gen_total": total}
 
 
-def make_gan_steps(cfg: IrisConfig, accum_steps: int = 1):
+def make_gan_steps(cfg: IrisConfig, accum_steps: int = 1,
+                   compute_dtype: DtypeLike = None, remat: bool = False):
     """Returns (discriminator_step, generator_step), each
     ``(gen_state, disc_state, batch) → (its own new state, metrics)``;
     alternate them per batch as in the paper. The discriminators' periods,
     scales and width are those of the module in ``disc_state.params``."""
+    dt = resolve_dtype(compute_dtype)
+
+    def modes(gen_state, disc_state):
+        return computing([gen_state.params, disc_state.params], dt,
+                         remat=remat)
 
     def disc_step(gen_state: TrainState, disc_state: TrainState, batch):
-        metrics = _accumulated_grads(
-            lambda b: disc_loss(disc_state.params, gen_state.params, b),
-            batch, accum_steps)
+        with modes(gen_state, disc_state):
+            metrics = _accumulated_grads(
+                lambda b: disc_loss(disc_state.params, gen_state.params, b),
+                batch, accum_steps)
         return disc_state.apply_gradients(), metrics
 
     def gen_step(gen_state: TrainState, disc_state: TrainState, batch):
-        with frozen_params(disc_state.params):
+        with modes(gen_state, disc_state), frozen_params(disc_state.params):
             metrics = _accumulated_grads(
                 lambda b: gen_loss(gen_state.params, disc_state.params, b,
                                    cfg),
@@ -146,11 +160,13 @@ class GANState:
         return self
 
 
-def make_gan_train_step(cfg: IrisConfig, accum_steps: int = 1):
+def make_gan_train_step(cfg: IrisConfig, accum_steps: int = 1,
+                        compute_dtype: DtypeLike = None, remat: bool = False):
     """One round on a :class:`GANState`: the discriminator step, then the
     generator step against the updated discriminator (the per-batch order
     of the JAX stage script)."""
-    disc_step, gen_step = make_gan_steps(cfg, accum_steps)
+    disc_step, gen_step = make_gan_steps(cfg, accum_steps, compute_dtype,
+                                         remat)
 
     def step(state: GANState, batch) -> Tuple[GANState, Dict]:
         _, dm = disc_step(state.gen, state.disc, batch)

@@ -200,10 +200,13 @@ class TrainLoop:
         return state
 
 
-def resume_if_available(ckpt: CheckpointManager, template):
+def resume_if_available(ckpt: CheckpointManager, template,
+                        steps_per_epoch: int = 0):
     """Restore the latest checkpoint into ``template`` if one exists;
     returns (state, start_epoch) with the epoch from the checkpointed
-    counter."""
+    counter (``steps_per_epoch`` is unused and kept for the JAX package's
+    call sites)."""
+    del steps_per_epoch
     if ckpt.latest_step() is None:
         return template, 0
     state = ckpt.restore(template)

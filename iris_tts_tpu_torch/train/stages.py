@@ -13,7 +13,10 @@ one output directory::
     out_dir/hifigan_gan/checkpoints  HiFiGAN generator + MPD/MSD
 
 and :meth:`TTSPipeline.from_checkpoints` assembles a servable pipeline
-from them. Left out here: bf16 compute, remat and mesh placement.
+from them. ``compute_dtype=torch.bfloat16`` trains a stage in mixed
+precision and ``remat=True`` (VAE, GAN) recomputes block activations in
+the backward pass (``train/steps.py``, ``train/gan.py``); the checkpoints
+hold f32 params either way. Left out here: mesh placement.
 """
 
 from __future__ import annotations
@@ -43,7 +46,8 @@ from iris_tts_tpu_torch.models.postnet import PostNet
 from iris_tts_tpu_torch.models.vae import TextConditionedVAE
 from iris_tts_tpu_torch.runtime import (
     DeviceLike,
-    pin_f32_math,
+    DtypeLike,
+    pin_math_precision,
     resolve_device,
     seeded_generator,
 )
@@ -127,10 +131,11 @@ def load_frozen_vae(cfg: IrisConfig, checkpoint_dir: str | Path,
 def duration_stage(cfg: IrisConfig, data_root, alignment_dir, out_dir,
                    cache_dir=None, device: DeviceLike = None,
                    accum_steps: int = 1,
-                   max_phoneme_length: int = 256) -> TrainLoop:
+                   max_phoneme_length: int = 256,
+                   compute_dtype: DtypeLike = None) -> TrainLoop:
     """Stage 1: encoder + duration head (``scripts/train_encoder.py``)."""
     device = resolve_device(device)
-    pin_f32_math()
+    pin_math_precision()
     out = Path(out_dir) / "encoder"
     cache_dir = cache_dir or Path(out_dir) / "cache"
     train_ds, val_ds = _datasets(LJSpeechDurationDataset, data_root,
@@ -151,7 +156,7 @@ def duration_stage(cfg: IrisConfig, data_root, alignment_dir, out_dir,
     state, start_epoch = resume_if_available(ckpt, state)
     return TrainLoop(
         state=state,
-        train_step=make_duration_train_step(cfg, accum_steps),
+        train_step=make_duration_train_step(cfg, accum_steps, compute_dtype),
         batcher=batcher,
         num_epochs=cfg.train.num_epochs,
         device=device,
@@ -170,11 +175,12 @@ def duration_stage(cfg: IrisConfig, data_root, alignment_dir, out_dir,
 def vae_stage(cfg: IrisConfig, data_root, alignment_dir, out_dir,
               cache_dir=None, device: DeviceLike = None,
               accum_steps: int = 1, max_frames: int = 2048,
-              encoder_checkpoint=None) -> TrainLoop:
+              encoder_checkpoint=None, compute_dtype: DtypeLike = None,
+              remat: bool = False) -> TrainLoop:
     """Stage 2: VAE over the frozen encoder, with the KL weight annealed by
     epoch (``scripts/train_vae.py``). Builds the mel cache first."""
     device = resolve_device(device)
-    pin_f32_math()
+    pin_math_precision()
     out = Path(out_dir) / "vae"
     cache_dir = cache_dir or Path(out_dir) / "cache"
     train_ds, val_ds = _datasets(LJSpeechVAEDataset, data_root,
@@ -204,7 +210,8 @@ def vae_stage(cfg: IrisConfig, data_root, alignment_dir, out_dir,
 
     return TrainLoop(
         state=state,
-        train_step=make_vae_train_step(cfg, accum_steps),
+        train_step=make_vae_train_step(cfg, accum_steps, compute_dtype,
+                                       remat),
         batcher=batcher,
         num_epochs=cfg.train.num_epochs,
         device=device,
@@ -222,12 +229,13 @@ def vae_stage(cfg: IrisConfig, data_root, alignment_dir, out_dir,
 
 def postnet_stage(cfg: IrisConfig, data_root, alignment_dir, out_dir,
                   cache_dir=None, device: DeviceLike = None,
-                  encoder_checkpoint=None, vae_checkpoint=None) -> TrainLoop:
+                  encoder_checkpoint=None, vae_checkpoint=None,
+                  compute_dtype: DtypeLike = None) -> TrainLoop:
     """Stage 3: PostNet over the frozen encoder and VAE
     (``scripts/train_postnet.py``). The architecture comes from the config
     recorded beside the VAE checkpoints when there is one."""
     device = resolve_device(device)
-    pin_f32_math()
+    pin_math_precision()
     out = Path(out_dir) / "postnet"
     cache_dir = cache_dir or Path(out_dir) / "cache"
     vae_dir = Path(vae_checkpoint or Path(out_dir) / "vae" / "checkpoints")
@@ -257,7 +265,7 @@ def postnet_stage(cfg: IrisConfig, data_root, alignment_dir, out_dir,
     state, start_epoch = resume_if_available(ckpt, state)
     return TrainLoop(
         state=state,
-        train_step=make_postnet_train_step(cfg),
+        train_step=make_postnet_train_step(cfg, compute_dtype),
         batcher=batcher,
         num_epochs=cfg.train.num_epochs,
         device=device,
@@ -274,14 +282,16 @@ def gan_stage(cfg: IrisConfig, data_root, alignment_dir, out_dir,
               cache_dir=None, device: DeviceLike = None,
               segment_frames: int = 32, disc_width: float = 1.0,
               periods: Sequence[int] = (2, 3, 5, 7, 11), num_scales: int = 3,
-              accum_steps: int = 1, ema_decay: float = 0.0) -> TrainLoop:
+              accum_steps: int = 1, ema_decay: float = 0.0,
+              compute_dtype: DtypeLike = None,
+              remat: bool = False) -> TrainLoop:
     """Stage 4: HiFiGAN adversarial training with MPD/MSD on random
     ``segment_frames``-frame segments (32 → 8192 samples), AdamW-style
     betas (0.8, 0.99) on both sides (``scripts/train_hifigan.py``).
     ``ema_decay`` (e.g. 0.999) tracks an EMA of the generator, which
     ``from_checkpoints`` then serves."""
     device = resolve_device(device)
-    pin_f32_math()
+    pin_math_precision()
     out = Path(out_dir) / "hifigan_gan"
     cache_dir = cache_dir or Path(out_dir) / "cache"
     ds = LJSpeechVAEDataset(data_root, alignment_dir, split="train",
@@ -305,7 +315,8 @@ def gan_stage(cfg: IrisConfig, data_root, alignment_dir, out_dir,
     state, start_epoch = resume_if_available(ckpt, state)
     return TrainLoop(
         state=state,
-        train_step=make_gan_train_step(cfg, accum_steps),
+        train_step=make_gan_train_step(cfg, accum_steps, compute_dtype,
+                                       remat),
         batcher=batcher,
         num_epochs=cfg.train.num_epochs,
         device=device,

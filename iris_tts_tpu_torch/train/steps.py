@@ -20,6 +20,16 @@ Batches are dicts of tensors with static bucket shapes:
 ``accum_steps > 1``: the step takes batches shaped ``[accum, B, ...]``
 (:func:`split_microbatches`) and averages gradients and metrics over the
 microbatches before its single optimizer update.
+
+``compute_dtype=torch.bfloat16`` (duration, VAE and PostNet train steps)
+is mixed-precision training as in the JAX package: the modules, frozen
+ones included, compute in bf16 for the step's forward and backward
+passes (``models/layers.computing``), while the params, their gradients,
+the Adam state and the loss reductions stay f32, so the f32 master copy
+is the parameter itself; bf16's f32 exponent range needs no loss scaling.
+``remat=True`` (VAE) recomputes the WaveNet blocks' activations in the
+backward pass, dropout masks replayed (``layers.checkpoint_block``). The
+eval and reconstruction steps compute in f32, as JAX's do.
 """
 
 from __future__ import annotations
@@ -30,12 +40,14 @@ import torch
 import torch.nn as nn
 
 from iris_tts_tpu_torch.config import IrisConfig
+from iris_tts_tpu_torch.models.layers import computing
 from iris_tts_tpu_torch.ops.length import length_regulate
 from iris_tts_tpu_torch.ops.losses import (
     duration_huber_loss,
     masked_l1_loss,
     vae_loss,
 )
+from iris_tts_tpu_torch.runtime import DtypeLike, resolve_dtype
 from iris_tts_tpu_torch.train.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
@@ -102,12 +114,16 @@ def duration_loss(params: nn.Module, batch: Batch, cfg: IrisConfig,
     return loss, {"duration_loss": loss}
 
 
-def make_duration_train_step(cfg: IrisConfig, accum_steps: int = 1):
+def make_duration_train_step(cfg: IrisConfig, accum_steps: int = 1,
+                             compute_dtype: DtypeLike = None):
+    dt = resolve_dtype(compute_dtype)
+
     def step(state: TrainState, batch: Batch):
-        metrics = _accumulated_grads(
-            lambda b: duration_loss(state.params, b, cfg, False,
-                                    state.generator),
-            batch, accum_steps)
+        with computing((state.params, state.frozen), dt):
+            metrics = _accumulated_grads(
+                lambda b: duration_loss(state.params, b, cfg, False,
+                                        state.generator),
+                batch, accum_steps)
         return state.apply_gradients(), metrics
 
     return step
@@ -116,9 +132,10 @@ def make_duration_train_step(cfg: IrisConfig, accum_steps: int = 1):
 def make_duration_eval_step(cfg: IrisConfig):
     @torch.no_grad()
     def step(params: nn.Module, batch: Batch) -> Metrics:
-        enc = params["encoder"](batch["phoneme_ids"],
-                                padding_mask=batch["phoneme_mask"])
-        pred = params["duration"](enc)
+        with computing([params], torch.float32):
+            enc = params["encoder"](batch["phoneme_ids"],
+                                    padding_mask=batch["phoneme_mask"])
+            pred = params["duration"](enc)
         mask = batch["phoneme_mask"]
         loss = duration_huber_loss(pred, batch["durations"], mask,
                                    delta=cfg.train.duration_huber_delta)
@@ -160,12 +177,17 @@ def vae_stage_loss(vae: nn.Module, frozen: nn.ModuleDict, batch: Batch,
                     u=out[3] if flow_prior else None)
 
 
-def make_vae_train_step(cfg: IrisConfig, accum_steps: int = 1):
+def make_vae_train_step(cfg: IrisConfig, accum_steps: int = 1,
+                        compute_dtype: DtypeLike = None, remat: bool = False):
+    dt = resolve_dtype(compute_dtype)
+
     def step(state: TrainState, batch: Batch, kl_weight):
-        metrics = _accumulated_grads(
-            lambda b: vae_stage_loss(state.params, state.frozen, b,
-                                     kl_weight, cfg, False, state.generator),
-            batch, accum_steps)
+        with computing((state.params, state.frozen), dt, remat=remat):
+            metrics = _accumulated_grads(
+                lambda b: vae_stage_loss(state.params, state.frozen, b,
+                                         kl_weight, cfg, False,
+                                         state.generator),
+                batch, accum_steps)
         return state.apply_gradients(), metrics
 
     return step
@@ -176,8 +198,9 @@ def make_vae_recon_step(cfg: IrisConfig):
     batch) → (recon [B, T, n_mels], frame_mask [B, T])."""
     @torch.no_grad()
     def step(params: nn.Module, frozen: nn.ModuleDict, batch: Batch):
-        cond, frame_mask = _frame_condition(frozen["encoder"], batch)
-        return params(batch["mel"], cond)[0], frame_mask
+        with computing([params, frozen], torch.float32):
+            cond, frame_mask = _frame_condition(frozen["encoder"], batch)
+            return params(batch["mel"], cond)[0], frame_mask
 
     return step
 
@@ -186,8 +209,9 @@ def make_vae_eval_step(cfg: IrisConfig):
     @torch.no_grad()
     def step(params: nn.Module, frozen: nn.ModuleDict, batch: Batch,
              kl_weight) -> Metrics:
-        return vae_stage_loss(params, frozen, batch, kl_weight, cfg,
-                              deterministic=True)[1]
+        with computing([params, frozen], torch.float32):
+            return vae_stage_loss(params, frozen, batch, kl_weight, cfg,
+                                  deterministic=True)[1]
 
     return step
 
@@ -212,14 +236,17 @@ def postnet_stage_loss(postnet: nn.Module, frozen: nn.ModuleDict,
     return loss, {"postnet_l1": loss}
 
 
-def make_postnet_train_step(cfg: IrisConfig):
+def make_postnet_train_step(cfg: IrisConfig,
+                            compute_dtype: DtypeLike = None):
     del cfg  # the PostNet's config lives in its module
+    dt = resolve_dtype(compute_dtype)
 
     def step(state: TrainState, batch: Batch):
-        metrics = _accumulated_grads(
-            lambda b: postnet_stage_loss(state.params, state.frozen, b,
-                                         False, state.generator),
-            batch, 1)
+        with computing((state.params, state.frozen), dt):
+            metrics = _accumulated_grads(
+                lambda b: postnet_stage_loss(state.params, state.frozen, b,
+                                             False, state.generator),
+                batch, 1)
         return state.apply_gradients(), metrics
 
     return step

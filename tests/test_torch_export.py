@@ -14,6 +14,7 @@ import shutil
 import signal
 import subprocess
 import sys
+import threading
 import time
 import wave
 from pathlib import Path
@@ -362,6 +363,125 @@ def test_progressive_warmup(pipeline, artifact_dir, tmp_path):
                            device="cpu")
     assert blocking.warmup(block=True) == len(blocking._programs) == 2
     assert blocking.warm_all_done()
+
+
+def test_a_warm_bucket_does_not_wait_for_a_capture(pipeline, artifact_dir,
+                                                   tmp_path, monkeypatch):
+    """Capture and replay take separate locks: while the background thread
+    is held inside another bucket's capture, a request to the bucket
+    captured first returns (the old single lock made it wait for the
+    capture to end)."""
+    small = _subset(artifact_dir, tmp_path / "small",
+                    keep=("synth_b1_p16.pt2", "synth_b4_p16.pt2"))
+    pipe = AotPipeline(small, text_processor=pipeline.text_processor,
+                       device="cpu")
+    capture = AotPipeline._capture
+    in_capture, release = threading.Event(), threading.Event()
+
+    def slow_capture(self, prog):
+        if self._ready:  # every capture after the first bucket's
+            in_capture.set()
+            assert release.wait(120)
+        capture(self, prog)
+
+    monkeypatch.setattr(AotPipeline, "_capture", slow_capture)
+    assert pipe.warmup(block=False) == 1
+    assert in_capture.wait(60)
+    out = {}
+    request = threading.Thread(
+        target=lambda: out.update(audio=pipe.synthesize("third", seed=3)))
+    try:
+        request.start()
+        request.join(60)
+        finished = not request.is_alive()
+        capture_in_flight = not pipe.warm_all_done()
+    finally:
+        release.set()
+        request.join(60)
+    assert finished and capture_in_flight
+    assert out["audio"].size and np.isfinite(out["audio"]).all()
+    deadline = time.time() + 120
+    while not pipe.warm_all_done() and time.time() < deadline:
+        time.sleep(0.05)
+    assert pipe.warm_all_done() and not pipe.warmup_errors
+
+
+def test_a_cold_bucket_waits_for_one_capture_not_all(pipeline, artifact_dir,
+                                                     tmp_path, monkeypatch):
+    """A request to a bucket not captured yet waits for the capture in
+    flight and then captures its own; it does not wait behind the
+    background warmup's remaining captures (the background thread lets
+    waiting requests go first)."""
+    small = _subset(artifact_dir, tmp_path / "small",
+                    keep=("synth_b1_p16.pt2", "synth_b1_p32.pt2",
+                          "synth_b4_p16.pt2", "synth_b4_p32.pt2"))
+    pipe = AotPipeline(small, text_processor=pipeline.text_processor,
+                       device="cpu")
+    capture = AotPipeline._capture
+    order = []
+
+    def slow_capture(self, prog):
+        key = next(k for k, v in self._programs.items() if v is prog)
+        order.append(key)
+        if len(order) > 1:
+            time.sleep(0.5)
+        capture(self, prog)
+
+    monkeypatch.setattr(AotPipeline, "_capture", slow_capture)
+    assert pipe.warmup(block=False) == 1
+    while len(order) < 2:  # the background thread is capturing (1, 32)
+        time.sleep(0.01)
+    out = pipe.synthesize(["the second one", "third"], seed=3)  # (4, 16)
+    left = not pipe.warm_all_done()
+    assert len(out) == 2 and all(o.size for o in out)
+    assert order[:3] == [(1, 16), (1, 32), (4, 16)] and left
+    deadline = time.time() + 120
+    while not pipe.warm_all_done() and time.time() < deadline:
+        time.sleep(0.05)
+    assert pipe.warm_all_done() and order[3:] == [(4, 32)]
+
+
+def test_bf16_export_matches_the_live_bf16_function(pipeline, tmp_path):
+    """A bf16 pipeline exports bf16 programs: the manifest records the
+    dtype, the noise input is bf16 (the live path's noise), the program
+    equals the live bf16 fused function at the bucket's shapes bitwise,
+    and ``AotPipeline`` over it returns f32 audio equal to the live bf16
+    ``synthesize`` at the same frame budget."""
+    pipe16 = dataclasses.replace(pipeline, dtype=torch.bfloat16)
+    out = export_pipeline(pipe16, tmp_path / "aot16", batch_sizes=(1,),
+                          phoneme_buckets=(16,))
+    manifest = json.loads((out / "manifest.json").read_text())
+    assert manifest["dtype"] == "bfloat16"
+    aot = AotPipeline(out, text_processor=pipeline.text_processor,
+                      device="cpu")
+    assert aot.dtype == torch.bfloat16
+    aot.warmup()
+    prog = aot._programs[(1, 16)]
+    ids_t, len_t, eps_t, temp_t = prog.inputs
+    assert eps_t.dtype == torch.bfloat16
+    entry = aot._entries[(1, 16)]
+    ids = pipeline._encode_texts(["the second one"])[0][:, :16]
+    lengths = np.array([int((ids[0] != pipeline.vocab.pad_id).sum())])
+    ids_t.copy_(torch.from_numpy(ids))
+    len_t.copy_(torch.from_numpy(lengths))
+    eps_t.copy_(pipe16._prior_noise(1, entry["frame_bucket"], 5))
+    temp_t.fill_(0.8)
+    got = prog.run()
+    with torch.inference_mode():
+        want = tpipeline.fused_synthesis(
+            pipe16.model, torch.from_numpy(ids), torch.from_numpy(lengths),
+            pipe16._prior_noise(1, entry["frame_bucket"], 5), 0.8,
+            entry["frame_bucket"], pipe16.use_postnet, pipe16.upsample)
+    assert got[0].dtype == torch.bfloat16
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    # The public API: f32 audio, the live path at the bucket's budget.
+    text = "a " * 14  # 14+ phonemes: the live budget is the bucket's
+    n = len(pipe16.text_processor.text_to_ids(text, pipe16.vocab))
+    assert pipe16._fused_frame_budget(np.array([n])) == entry["frame_bucket"]
+    a = aot.synthesize(text, seed=4, temperature=0.0)
+    b = pipe16.synthesize(text, seed=4, temperature=0.0, fused=True)
+    assert a.dtype == np.float32 and np.array_equal(a, b)
 
 
 def test_process_exits_cleanly_during_background_warmup(artifact_dir):

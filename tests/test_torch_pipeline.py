@@ -164,6 +164,39 @@ def test_port_imports_no_jax():
         "assert 'iris_tts_tpu_torch.text.neural_g2p' in mods, mods\n"
         "[importlib.import_module(m) for m in mods]\n"
         "runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
+        # bf16 and remat run without JAX too: a tiny bf16 pipeline
+        # synthesizes, and a bf16 + remat VAE step trains.
+        "import torch\n"
+        "from iris_tts_tpu_torch import config as C\n"
+        "from iris_tts_tpu_torch.models import TTSPipeline\n"
+        "from iris_tts_tpu_torch.models.vae import TextConditionedVAE\n"
+        "from iris_tts_tpu_torch.models.encoder import PhonemeEncoder\n"
+        "from iris_tts_tpu_torch.train import TrainState, adam_clipped\n"
+        "from iris_tts_tpu_torch.train import make_vae_train_step\n"
+        "cfg = C.IrisConfig(encoder=C.EncoderConfig(embed_dim=16, "
+        "num_blocks=1, num_heads=2), duration=C.DurationConfig(hidden_dim=8,"
+        " num_layers=1), vae=C.VAEConfig(cond_dim=16, model_channels=8, "
+        "latent_dim=4, num_wavenet_blocks=1, decoder_blocks=1, "
+        "flow_layers=1, flow_hidden=8, dropout=0.1), "
+        "postnet=C.PostNetConfig(num_layers=2, channels=8), "
+        "hifigan=C.HiFiGANConfig(upsample_initial_channel=16, "
+        "resblock_kernel_sizes=(3,), resblock_dilations=((1,),)))\n"
+        "p = TTSPipeline.initialize(cfg, device='cpu', dtype='bf16')\n"
+        "a = p.synthesize('hello world', seed=1)\n"
+        "assert a.dtype.name == 'float32' and a.size, a.dtype\n"
+        "cfg = p.config\n"
+        "from iris_tts_tpu_torch.models.layers import init_params\n"
+        "vae, enc = TextConditionedVAE(cfg.vae), PhonemeEncoder(cfg.encoder)\n"
+        "[init_params(m, torch.Generator().manual_seed(0)) "
+        "for m in (vae, enc)]\n"
+        "st = TrainState.create(vae, adam_clipped(1e-3), 0, "
+        "frozen={'encoder': enc})\n"
+        "b = {'phoneme_ids': torch.ones(2, 5, dtype=torch.long), "
+        "'durations': torch.full((2, 5), 3.0), 'phoneme_mask': "
+        "torch.ones(2, 5), 'mel': torch.randn(2, 16, cfg.vae.n_mels)}\n"
+        "st, m = make_vae_train_step(cfg, compute_dtype=torch.bfloat16, "
+        "remat=True)(st, b, torch.tensor(0.01))\n"
+        "assert torch.isfinite(m['total']), m\n"
         "roots = ('jax', 'flax', 'optax', 'orbax', 'iris_tts_tpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in roots]\n"
         "assert not bad, bad\n"
