@@ -82,12 +82,25 @@ every kernel against its plain PyTorch version:
    params); one bf16 AOT bucket (B=1, P=32) whose graph replay equals the
    live bf16 fused function bitwise; bf16 copy synthesis through the
    log-mel kernel, and the kernel on bf16 audio against the plain version
-   (bf16 out, within one bf16 ulp or the kernel's 2e-3).
+   (bf16 out, within one bf16 ulp or the kernel's 2e-3);
+10. the command-line drivers, in-process through their ``main(argv)`` at
+   full width on their default device (the card): ``make_synthetic_corpus
+   --n 32``; ``train_full_pipeline`` (batch 16, one epoch a stage, GAN on
+   16 × 32-frame segments, four eval samples, fp16 artifact) with finite
+   held-out MCD/LSD/control/duration MAE, the artifact's smoke-eval, stage
+   and eval seconds and the DTW's share; the log-mel launches on this path
+   counted exactly (one a cached clip, one a scored resynthesis), every
+   cached mel and each resynthesis mel within 2e-3 of the plain version;
+   ``python -m iris_tts_tpu_torch.scripts.synthesize --artifact`` in a child
+   process (wall time from cold), ``--use_griffin_lim`` (60 iterations,
+   timed on the card); ``batch_synthesize --random_weights
+   --num_utterances 64 --batch_size 16`` twice (cold, warm) with the
+   meter's realtime factor, mel frames a second and p50 / p90.
 
-Five paths drive the kernel, or not: synthesis (phases 3 and 4),
-training (phase 6), serving (phase 7), AOT serving (phase 8) and bf16
-(phase 9's copy synthesis); the two serving paths compute no log-mel: 0
-launches. Each path's launch counts
+Six paths drive the kernel, or not: synthesis (phases 3 and 4),
+training (phase 6), serving (phase 7), AOT serving (phase 8), bf16
+(phase 9's copy synthesis) and the command line (phase 10); the two
+serving paths compute no log-mel: 0 launches. Each path's launch counts
 are zeroed just before it and read just after, and a kernel of the path
 that was not launched fails the run.
 The last three lines are the card's name and power limit, a
@@ -157,6 +170,8 @@ AOT_WINDOW_CHUNK = 64
 # are bitwise equal to the live function).
 AOT_LIVE_LIMIT = 1e-6
 AOT_PADDED_BATCH_LIMIT = 1e-5
+# Phase 10's corpus (make_synthetic_corpus --n).
+CLI_CORPUS = 32
 # The loss each stage's fixed-batch check follows.
 STAGE_LOSS = {"duration": "duration_loss", "vae": "total",
               "postnet": "postnet_l1", "gan": "gen_mel_l1"}
@@ -1594,6 +1609,190 @@ def phase9_bf16(dev, card: str, pipe, handoff) -> int:
     return launches
 
 
+def phase10_cli(dev, card: str) -> int:
+    """The command-line path on the card, through the drivers' ``main(argv)``
+    in-process (see the module docstring). Returns the log-mel kernel's
+    launches on this path: one a cached clip, one a scored resynthesis."""
+    import numpy as np
+
+    from iris_tts_tpu_torch.data.audio_io import load_audio, read_wav
+    from iris_tts_tpu_torch.data.ljspeech import LJSpeechVAEDataset
+    from iris_tts_tpu_torch.models.pipeline import TTSPipeline
+    from iris_tts_tpu_torch.ops import mel_cuda
+    from iris_tts_tpu_torch.ops.griffin_lim import griffin_lim_from_log_mel
+    from iris_tts_tpu_torch.ops.stft import log_mel_spectrogram_plain
+    from iris_tts_tpu_torch.scripts import (
+        batch_synthesize,
+        make_synthetic_corpus,
+        synthesize,
+        train_full_pipeline,
+    )
+    from iris_tts_tpu_torch.utils.metrics import quality_report
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_cli_")
+    root = Path(tmp.name)
+    try:
+        # 1. corpus, then the four stages, the evaluation and the artifact
+        # in one driver call; the kernel's launches count from here to the
+        # path's last driver
+        mel_cuda.log_mel_cuda.launches = 0
+        t0 = time.perf_counter()
+        make_synthetic_corpus.main(["--root", str(root / "corpus"),
+                                    "--n", str(CLI_CORPUS)])
+        corpus_s = time.perf_counter() - t0
+        data_root = root / "corpus" / "LJSpeech-1.1"
+        aligned = root / "corpus" / "aligned"
+        cache, out = root / "cache", root / "run"
+        t0 = time.perf_counter()
+        summary = train_full_pipeline.main([
+            "--data_root", str(data_root), "--alignment_dir", str(aligned),
+            "--cache_dir", str(cache), "--output_dir", str(out),
+            "--batch_size", "16", "--encoder_epochs", "1",
+            "--vae_epochs", "1", "--postnet_epochs", "1",
+            "--gan_epochs", "1", "--gan_batch", "16",
+            "--segment_frames", "32", "--eval_samples", "4",
+            "--artifact_half"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        for key in ("mcd_db", "lsd_db", "control_mcd_db", "control_lsd_db",
+                    "duration_mae_frames", "resynth_mcd_db"):
+            check(summary[key] is not None and math.isfinite(summary[key]),
+                  f"finite {key} ({summary[key]})")
+        on_disk = json.loads((out / "eval" / "summary.json").read_text())
+        check(on_disk["artifact_smoke"]["ok"] and on_disk["artifact_smoke"][
+            "params_dtype"] == "float16", "fp16 artifact smoke-eval ok")
+        timings = json.loads((out / "timings.json").read_text())
+        check(set(timings) == {"encoder_s", "vae_s", "postnet_s", "gan_s",
+                               "eval_s"}, f"stage timings {timings}")
+        print(f"phase 10 train_full_pipeline (IrisConfig(), corpus of "
+              f"{CLI_CORPUS} from make_synthetic_corpus in {corpus_s:.1f} s, "
+              f"batch 16, one epoch a stage, GAN 16 x 32 frames, fp16 "
+              f"artifact): {run_s:.1f} s in all; stage seconds "
+              + ", ".join(f"{k[:-2]} {v}" for k, v in timings.items())
+              + f"; DTW-aligned MCD/LSD {summary['quality_s']} s of the "
+              f"eval ({100 * summary['quality_s'] / timings['eval_s']:.0f}%)"
+              f" ({card})", flush=True)
+        print(f"phase 10 held-out eval ({summary['eval_samples']} of "
+              f"{summary['val_utterances']} val utterances): MCD "
+              f"{summary['mcd_db']:.3f} dB (control "
+              f"{summary['control_mcd_db']:.3f}), LSD {summary['lsd_db']:.3f}"
+              f" dB (control {summary['control_lsd_db']:.3f}), duration MAE "
+              f"{summary['duration_mae_frames']:.3f} frames, resynthesis MCD "
+              f"{summary['resynth_mcd_db']:.3f} dB; artifact smoke max delta "
+              f"{on_disk['artifact_smoke']['max_abs_delta_db']} dB (tol "
+              f"{on_disk['artifact_smoke']['tol_db']})", flush=True)
+
+        # 2. synthesize from the artifact in a child process, from cold;
+        # then the Griffin-Lim vocoder in-process
+        pipe = train_full_pipeline.build_pipeline(out, cache, dev)
+        audio_cfg = pipe.config.audio
+        art = out / "pipeline_artifact"
+        wav = root / "child.wav"
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "iris_tts_tpu_torch.scripts.synthesize",
+             "--artifact", str(art), "--text", TRAIN_SENTENCE,
+             "--output_wav", str(wav), "--device", str(dev)],
+            capture_output=True, text=True, timeout=300)
+        child_s = time.perf_counter() - t0
+        check(r.returncode == 0, f"synthesize child: {r.stderr[-1500:]}")
+        samples, sr = read_wav(wav)
+        hop = audio_cfg.hop_length
+        check(sr == audio_cfg.sample_rate and len(samples) > 0
+              and len(samples) % hop == 0, "child wav")
+        gl_wav = root / "gl.wav"
+        t0 = time.perf_counter()
+        gl = synthesize.main(["--artifact", str(art), "--text",
+                              TRAIN_SENTENCE, "--use_griffin_lim",
+                              "--output_wav", str(gl_wav)])
+        gl_host_s = time.perf_counter() - t0
+        mel = torch.from_numpy(pipe.synthesize_mel(TRAIN_SENTENCE, seed=0))
+        mel = mel.to(dev)
+        check(bool(np.isfinite(gl).all()) and len(gl) % hop == 0,
+              "Griffin-Lim audio")
+        gl_ms = time_cuda_ms(
+            lambda: griffin_lim_from_log_mel(mel, 60, audio_cfg), reps=5,
+            warmup=1, graph=False)
+        print(f"phase 10 synthesize --artifact in a child process: "
+              f"{child_s:.2f} s wall from cold ({len(samples)} samples); "
+              f"--use_griffin_lim in-process {gl_host_s:.2f} s wall "
+              f"({len(gl)} samples); Griffin-Lim alone, 60 iterations on "
+              f"{mel.shape[0]} frames: {gl_ms:.2f} ms on the card (events "
+              f"around 5 eager calls; {card})", flush=True)
+
+        # 3. bulk synthesis: the meter's numbers, cold then warm
+        for run in ("cold", "warm"):
+            s = batch_synthesize.main([
+                "--random_weights", "--num_utterances", "64",
+                "--batch_size", "16"])
+            check(s["rtf"] > 0 and s["audio_seconds"] > 0, "batch summary")
+            print(f"phase 10 batch_synthesize --random_weights, 64 "
+                  f"utterances in batches of 16 ({run}): rtf "
+                  f"{s['rtf']:.2f}, {s['mel_frames_per_sec']:.1f} mel "
+                  f"frames/s, p50 {s['p50_latency_s']:.3f} s, p90 "
+                  f"{s['p90_latency_s']:.3f} s (one meter window over the "
+                  f"run), {s['audio_seconds']:.2f} s of audio ({card})",
+                  flush=True)
+
+        # 4. the path's launches, read after its last driver, then its
+        # kernel outputs against the plain version: every cached mel, and
+        # each scored resynthesis again (its mel is scored, not kept) with
+        # its MCD against the run's
+        launches = mel_cuda.log_mel_cuda.launches
+        mel_files = sorted((cache / "mels").glob("*.npy"))
+        n_resynth = min(4, summary["eval_samples"])
+        check(len(mel_files) == CLI_CORPUS,
+              f"a cached mel per clip ({len(mel_files)})")
+        check(launches == len(mel_files) + n_resynth,
+              f"log-mel launches on the CLI path: {launches} == "
+              f"{len(mel_files)} cached clips + {n_resynth} scored "
+              f"resynthesis")
+        worst = 0.0
+        for f in mel_files:
+            audio = load_audio(data_root / "wavs" / f"{f.stem}.wav")
+            want = log_mel_spectrogram_plain(
+                torch.from_numpy(audio).to(dev), audio_cfg)
+            cached = np.load(f)
+            check(bool(np.isfinite(cached).all()), f"finite mel {f.stem}")
+            worst = max(worst, max_abs(cached, want))
+        val = LJSpeechVAEDataset(data_root, aligned, split="val",
+                                 cache_dir=cache, audio=audio_cfg, device=dev)
+        resynth = []
+        for i in range(n_resynth):
+            gt = val[i]
+            a = torch.from_numpy(pipe.vocode(gt.mel)).to(dev)
+            got = mel_cuda.log_mel_cuda(a, audio_cfg)
+            worst = max(worst, max_abs(got, log_mel_spectrogram_plain(
+                a, audio_cfg)))
+            mel_r = got.cpu().numpy()[: gt.mel.shape[0]]
+            resynth.append(quality_report(
+                mel_r, gt.mel[: mel_r.shape[0]], align="trim")["mcd_db"])
+        # the smoke-eval's first row again: frames before and after the
+        # fp16 round trip of the weights
+        smoke = on_disk["artifact_smoke"]["samples"][0]
+        frames = [len(p.synthesize_mel(val[0].text, seed=0, temperature=0.0))
+                  for p in (pipe, TTSPipeline.load(art, device=dev))]
+        print(f"phase 10 artifact smoke-eval, val[0]: {frames[0]} frames "
+              f"before the fp16 round trip, {frames[1]} after; MCD "
+              f"{smoke['pre_save_mcd_db']} -> {smoke['mcd_db']} dB (delta "
+              f"{smoke['delta_db']}, tol "
+              f"{on_disk['artifact_smoke']['tol_db']})", flush=True)
+        drift = abs(float(np.mean(resynth)) - summary["resynth_mcd_db"])
+        check(worst <= 2e-3, f"CLI path mels vs plain max-abs {worst}")
+        check(drift <= 1e-3, f"resynthesis MCD again {drift} dB off")
+        print(f"phase 10 log-mel kernel on the CLI path: {launches} launches "
+              f"({len(mel_files)} cached clips + {n_resynth} scored "
+              f"resynthesis); every cached and resynthesis mel within "
+              f"{worst:.3e} of the plain version (resynthesis MCD again "
+              f"within {drift:.1e} dB)", flush=True)
+    finally:
+        tmp.cleanup()
+    print(f"phase 10 done in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1769,6 +1968,10 @@ def main() -> int:
     bf16_launches = phase9_bf16(dev, card, pipe, handoff)
     check(bf16_launches >= 1, "the bf16 path launched the log-mel kernel")
 
+    # -- 10. the command-line drivers (the CLI path) --------------------------
+    cli_launches = phase10_cli(dev, card)
+    check(cli_launches >= 1, "the CLI path launched the log-mel kernel")
+
     # -- where the time goes: one fused synthesize under the profiler --------
     profile_line("fused synthesize", lambda: pipe.synthesize(SENTENCE, seed=1),
                  card)
@@ -1780,12 +1983,13 @@ def main() -> int:
         "source": "iris_tts_tpu_torch/ops/csrc/log_mel.cu",
         "replaces": f"{jax_pkg}/ops/mel_pallas.py:110",
         "launches": launches + train_launches + serve_launches
-        + aot_launches + bf16_launches,
+        + aot_launches + bf16_launches + cli_launches,
         "launches_by_path": {"synthesis": launches,
                              "training": train_launches,
                              "serving": serve_launches,
                              "aot_serving": aot_launches,
-                             "bf16": bf16_launches},
+                             "bf16": bf16_launches,
+                             "cli": cli_launches},
         "max_abs_err": worst,
         "ms": k_ms,
         "plain_ms": p_ms,

@@ -8,7 +8,9 @@ from iris_tts_tpu_torch.models.encoder import (
 )
 from iris_tts_tpu_torch.models.hifigan import (
     HiFiGANGenerator,
+    HiFiGANVocoder,
     ResBlock,
+    create_vocoder,
     iter_stream_windows,
     receptive_radius_frames,
 )
@@ -34,7 +36,9 @@ __all__ = [
     "PhonemeEncoder",
     "TransformerBlock",
     "HiFiGANGenerator",
+    "HiFiGANVocoder",
     "ResBlock",
+    "create_vocoder",
     "iter_stream_windows",
     "receptive_radius_frames",
     "FRAME_BUCKETS",

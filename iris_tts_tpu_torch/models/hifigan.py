@@ -19,8 +19,9 @@ hold most of the GAN stage's activation memory), as the JAX generator's
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -30,7 +31,16 @@ from iris_tts_tpu_torch.models.layers import (
     Conv1d,
     ConvTranspose1d,
     checkpoint_block,
+    init_params,
     set_dtype,
+)
+from iris_tts_tpu_torch.runtime import (
+    DeviceLike,
+    DtypeLike,
+    pin_math_precision,
+    resolve_device,
+    resolve_dtype,
+    seeded_generator,
 )
 
 LRELU_SLOPE = 0.1
@@ -162,3 +172,61 @@ def iter_stream_windows(t: int, chunk_frames: int, context_frames: int):
         start_f = a - w0
         start_cl_f = min(start_f, window - chunk_frames)
         yield a, b, w0, start_f, start_cl_f
+
+
+# ---------------------------------------------------------------------------
+# Convenience wrappers (API parity with the reference)
+# ---------------------------------------------------------------------------
+
+
+class HiFiGANVocoder:
+    """A generator with its weights on one device, called on mels in the
+    reference layout: ``[n_mels, T]`` → ``[T · hop]``, ``[B, n_mels, T]`` →
+    ``[B, T · hop]`` (the JAX package's ``HiFiGANVocoder.__call__``).
+
+    ``params`` is a :class:`HiFiGANGenerator` state dict (port format,
+    e.g. from ``convert/from_jax.py``). ``device`` defaults to the CUDA
+    device and raises without one; ``dtype`` is the compute dtype (params
+    stay f32). The waveform comes back as a tensor on ``device`` in the
+    compute dtype.
+    """
+
+    def __init__(self, params: Dict[str, torch.Tensor],
+                 config: HiFiGANConfig = HiFiGANConfig(),
+                 device: DeviceLike = None, dtype: DtypeLike = None):
+        self.config = config
+        self.device = resolve_device(device)
+        self.dtype = resolve_dtype(dtype)
+        pin_math_precision()
+        module = HiFiGANGenerator(config)
+        module.load_state_dict(params, strict=True)
+        self.module = set_dtype(module.to(self.device).eval(), self.dtype)
+        for p in self.module.parameters():
+            p.requires_grad_(False)
+
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        return self.module.state_dict()
+
+    @torch.inference_mode()
+    def __call__(self, mel) -> torch.Tensor:
+        if not isinstance(mel, torch.Tensor):
+            mel = torch.from_numpy(np.asarray(mel, np.float32))
+        mel = mel.to(self.device, torch.float32)
+        squeeze = mel.ndim == 2
+        if squeeze:
+            mel = mel[None]
+        audio = self.module(mel.transpose(-1, -2).contiguous())
+        return audio[0] if squeeze else audio
+
+    infer = __call__
+
+
+def create_vocoder(config: HiFiGANConfig = HiFiGANConfig(), seed: int = 0,
+                   device: DeviceLike = None,
+                   dtype: DtypeLike = None) -> HiFiGANVocoder:
+    """A vocoder with seeded random weights (the flax-matching init drawn
+    from a ``torch.Generator`` seeded with ``seed``)."""
+    module = HiFiGANGenerator(config)
+    init_params(module, seeded_generator(seed, "cpu"))
+    return HiFiGANVocoder(module.state_dict(), config, device, dtype)

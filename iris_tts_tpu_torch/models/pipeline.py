@@ -644,7 +644,11 @@ class TTSPipeline:
         comes back to the host)."""
         ids, lengths = self._to_device(*self._encode_texts(texts))
         enc, frames, total_t = stage_a(self.model, ids, lengths)
-        total = int(total_t)
+        return enc, frames, self._frame_bucket(int(total_t))
+
+    def _frame_bucket(self, total: int) -> int:
+        """The frame bucket of a batch whose longest row has ``total``
+        predicted frames (warns when even the largest bucket truncates)."""
         factor = self.config.vae.down_factor
         t_bucket = pick_bucket(
             round_up_to_multiple(max(total, factor), factor),
@@ -653,7 +657,7 @@ class TTSPipeline:
             logger.warning(
                 "predicted %d frames exceed the largest frame bucket (%d); "
                 "the audio tail will be truncated", total, t_bucket)
-        return enc, frames, t_bucket
+        return t_bucket
 
     def _fused_frame_budget(self, lengths: np.ndarray) -> int:
         factor = self.config.vae.down_factor

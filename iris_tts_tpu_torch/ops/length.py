@@ -99,6 +99,19 @@ def round_up_to_multiple(n: int, multiple: int) -> int:
     return ((n + multiple - 1) // multiple) * multiple
 
 
+def pad_time_to_multiple(x: torch.Tensor, multiple: int,
+                         axis: int = 1) -> torch.Tensor:
+    """Zero-pad ``x`` at the end of ``axis`` so that its size is a multiple
+    of ``multiple`` (returned as is when it already is)."""
+    t = x.shape[axis]
+    target = round_up_to_multiple(t, multiple)
+    if target == t:
+        return x
+    shape = list(x.shape)
+    shape[axis] = target - t
+    return torch.cat([x, x.new_zeros(shape)], dim=axis)
+
+
 def durations_from_log(pred_log_durations: torch.Tensor) -> torch.Tensor:
     """Duration head output → integer frames: ``clip(round(exp(p) − 1), 1,
     1e6)``. ``torch.round`` rounds half to even, as ``jnp.round`` does."""

@@ -189,6 +189,22 @@ def _magnitude_f32(audio: torch.Tensor, n_fft: int, hop_length: int,
     return torch.sqrt(re * re + im * im + 1e-12)
 
 
+def stft_magnitude(audio: torch.Tensor, n_fft: int = 1024,
+                   hop_length: int = 256, win_length: int = 1024,
+                   pad_mode: str = "constant") -> torch.Tensor:
+    """|STFT| via an FFT (``torch.fft.rfft``; XLA's rfft in the JAX
+    package): audio [..., N] → [..., T, n_freqs], with the same 1e-12 floor
+    under the root, computed in f32 and returned in
+    :func:`log_mel_dtype`."""
+    frames = frame_signal(audio.to(torch.float32), n_fft, hop_length,
+                          pad_mode)
+    win = torch.from_numpy(padded_window(n_fft, win_length)).to(
+        frames.device)
+    spec = torch.fft.rfft(frames * win, n=n_fft, dim=-1)
+    mag = torch.sqrt(spec.real * spec.real + spec.imag * spec.imag + 1e-12)
+    return mag.to(log_mel_dtype(audio))
+
+
 def stft_magnitude_matmul(audio: torch.Tensor, n_fft: int = 1024,
                           hop_length: int = 256, win_length: int = 1024,
                           pad_mode: str = "constant") -> torch.Tensor:
@@ -245,3 +261,26 @@ def log_mel_spectrogram(audio: torch.Tensor,
 
     return log_mel_cuda(audio, cfg)
 
+
+
+def to_reference_layout(mel_tc: torch.Tensor) -> torch.Tensor:
+    """[..., T, n_mels] → [..., n_mels, T] (the reference's module-boundary
+    layout)."""
+    return mel_tc.transpose(-1, -2)
+
+
+def from_reference_layout(mel_ct: torch.Tensor) -> torch.Tensor:
+    """[..., n_mels, T] → [..., T, n_mels]."""
+    return mel_ct.transpose(-1, -2)
+
+
+def normalize_mel(mel: torch.Tensor, mean: Optional[torch.Tensor] = None,
+                  std: Optional[torch.Tensor] = None):
+    """Standardise a mel spectrogram → (normalised, mean, std); the mean
+    and the population std (``ddof=0``, as ``jnp.std``) of the whole tensor
+    when not given."""
+    if mean is None:
+        mean = torch.mean(mel)
+    if std is None:
+        std = torch.std(mel, correction=0)
+    return (mel - mean) / (std + 1e-8), mean, std

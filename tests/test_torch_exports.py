@@ -16,31 +16,10 @@ import iris_tts_tpu
 
 # name → why the port does not export it (yet).
 NOT_YET = {
-    "ops": {
-        "stft_magnitude": "ROADMAP §A.4 (ops/stft.py helpers)",
-        "normalize_mel": "ROADMAP §A.4 (ops/stft.py helpers)",
-        "to_reference_layout": "ROADMAP §A.4 (ops/stft.py helpers)",
-        "from_reference_layout": "ROADMAP §A.4 (ops/stft.py helpers)",
-        "pad_time_to_multiple": "ROADMAP §A.4 (ops/length.py)",
-    },
     "models": {
-        "HiFiGANVocoder": "ROADMAP §A.4 (eval and tools)",
-        "create_vocoder": "ROADMAP §A.4 (eval and tools)",
         "TorchConv1d": "ROADMAP §A.8: comes with the HiFiGAN converters; "
                        "layers.Conv1d with explicit padding computes it",
         "TorchConvTranspose1d": "ROADMAP §A.8, with the converters",
-    },
-    "utils": {
-        "SynthesisMeter": "ROADMAP §A.4 (utils/metrics.py)",
-        "log_spectral_distance": "ROADMAP §A.4 (utils/metrics.py)",
-        "mel_cepstral_distortion": "ROADMAP §A.4 (utils/metrics.py)",
-        "quality_report": "ROADMAP §A.4 (utils/metrics.py)",
-        "StepTimer": "ROADMAP §A.4 (utils/prof.py)",
-        "grad_norm": "ROADMAP §A.4 (utils/prof.py)",
-        "guard_finite": "ROADMAP §A.4 (utils/prof.py)",
-        "profile_stats": "ROADMAP §A.4 (utils/prof.py)",
-        "trace": "ROADMAP §A.4 (utils/prof.py)",
-        "tree_finite": "ROADMAP §A.4 (utils/prof.py)",
     },
 }
 # Subpackages the port does not have at all.

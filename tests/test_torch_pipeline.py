@@ -162,6 +162,8 @@ def test_port_imports_no_jax():
         "iris_tts_tpu_torch.__path__, 'iris_tts_tpu_torch.')]\n"
         "assert 'iris_tts_tpu_torch.train.stages' in mods, mods\n"
         "assert 'iris_tts_tpu_torch.text.neural_g2p' in mods, mods\n"
+        "assert 'iris_tts_tpu_torch.scripts.train_full_pipeline' in mods, "
+        "mods\n"
         "[importlib.import_module(m) for m in mods]\n"
         "runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
         # bf16 and remat run without JAX too: a tiny bf16 pipeline
