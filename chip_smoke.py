@@ -95,12 +95,42 @@ every kernel against its plain PyTorch version:
    process (wall time from cold), ``--use_griffin_lim`` (60 iterations,
    timed on the card); ``batch_synthesize --random_weights
    --num_utterances 64 --batch_size 16`` twice (cold, warm) with the
-   meter's realtime factor, mel frames a second and p50 / p90.
+   meter's realtime factor, mel frames a second and p50 / p90;
+11. multi-device on the one card (``iris_tts_tpu_torch.parallel``), its
+   ranks child processes of this script (``--mesh-rank``), each joined
+   by a deadline and killed in a ``finally``; a failed rank fails the
+   phase. 11a: NCCL at world size 1 (``IrisConfig()``, phase 7's scaled
+   weights): ``use_mesh`` synthesis of 8 sentences at temperature 0.667
+   (two-stage and fused) and ``vocode_sharded`` of 700 frames bitwise the
+   off-mesh calls; one SGD step of each stage (duration, VAE with the
+   frozen encoder, PostNet, GAN round; batch 16, full-width MPD/MSD)
+   through ``mesh_training_placement`` bitwise the one-process step (with
+   deterministic kernels), every collective of those paths called on NCCL
+   (a process group's one-rank mesh still calls them) and listed by path;
+   the train loop's host-agreed stop flag and the NCCL all-reduce of the
+   full model's gradient bucket, timed. 11b: gloo at world size 2, both ranks on
+   ``cuda:0`` (NCCL refuses two ranks on one GPU): the same 8 sentences,
+   4 a rank, against the one-process batch (≤ 1e-5 of the peak, equal
+   lengths); ``vocode_sharded`` of 700 frames against ``vocode`` (≤ 1e-5)
+   and its PCM16 variant (≤ 1 LSB); ``PipelineParallelSynthesizer(split=
+   1)`` on three batches against the fused path (≤ 1e-5); three SGD steps
+   of each stage, 8 rows a rank, against one process (params, and
+   PostNet's running statistics apart, within ``MESH_TRAIN_SHARE`` of the
+   largest change the one-process steps made; metrics within 1e-5
+   relative), while the same steps with the gradient all-reduce planted
+   out must read above that limit, with the step times; the stop flag and
+   the gloo all-reduce of the gradient bucket, timed; ``train_full_pipeline --mesh`` with phase 10's flags on
+   a 32-utterance corpus: the log-mel launches counted exactly (32 for
+   the cache on rank 0, 0 on rank 1, then rank 0's eval), every cached mel
+   within 2e-3 of the plain version, only rank 0 evaluating and writing
+   the artifact, its held-out MCD/LSD beside phase 10's; which collective
+   each path took, and each rank's wall time.
 
-Six paths drive the kernel, or not: synthesis (phases 3 and 4),
+Seven paths drive the kernel, or not: synthesis (phases 3 and 4),
 training (phase 6), serving (phase 7), AOT serving (phase 8), bf16
-(phase 9's copy synthesis) and the command line (phase 10); the two
-serving paths compute no log-mel: 0 launches. Each path's launch counts
+(phase 9's copy synthesis), the command line (phase 10) and the mesh
+(phase 11, counted in its rank processes); the two serving paths compute
+no log-mel: 0 launches. Each path's launch counts
 are zeroed just before it and read just after, and a kernel of the path
 that was not launched fails the run.
 The last three lines are the card's name and power limit, a
@@ -110,8 +140,10 @@ Any failed phase exits non-zero; so does a host without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import signal
 import statistics
 import subprocess
@@ -1609,10 +1641,11 @@ def phase9_bf16(dev, card: str, pipe, handoff) -> int:
     return launches
 
 
-def phase10_cli(dev, card: str) -> int:
+def phase10_cli(dev, card: str):
     """The command-line path on the card, through the drivers' ``main(argv)``
     in-process (see the module docstring). Returns the log-mel kernel's
-    launches on this path: one a cached clip, one a scored resynthesis."""
+    launches on this path (one a cached clip, one a scored resynthesis) and
+    the held-out eval's summary."""
     import numpy as np
 
     from iris_tts_tpu_torch.data.audio_io import load_audio, read_wav
@@ -1789,6 +1822,603 @@ def phase10_cli(dev, card: str) -> int:
     finally:
         tmp.cleanup()
     print(f"phase 10 done in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches, summary
+
+
+# -- phase 11: multi-device on one card ----------------------------------------
+
+# Eight sentences for the data-parallel batch (four a rank at world size 2).
+MESH_TEXTS = SERVE_TEXTS[:7] + [SENTENCE]
+PP_BATCHES = [BATCH[:2], MESH_TEXTS[:4], [SHORT]]
+# A rank's rows or window against the whole: cuDNN picks algorithms per
+# shape, so cross-shape results are held to this share of the peak; same
+# shapes (world size 1) are bitwise.
+MESH_SHAPE_LIMIT = 1e-5
+# Mesh SGD steps against single-process ones at full width: the params'
+# (and separately the buffers') max-abs difference, as a share of the
+# largest change the single-process steps made to them (the gradients
+# differ by cross-rank summation order and per-shape algorithms only). Each
+# run also holds the check's power: the same mesh steps with the gradient
+# all-reduce left out (a fault planted for that one run) must read above
+# the limit. At full width the sound steps read 6e-4 or less of that
+# change and the planted fault 1.6e-2 or more, in every stage (PERF.md,
+# phase 11): the limit sits at least 5x from each.
+MESH_TRAIN_SHARE = 3e-3
+MESH_DEADLINE_S = {"11a": 360, "11b": 600}
+MESH_TRAIN_STEPS = 3
+
+
+def _mesh_train_cases(dev):
+    """Full-width (``IrisConfig()``) seeded modules and random batches of 16
+    for one case per stage: (stage, trained module, frozen modules, batches,
+    lr, extras). The PostNet batch's second half has other statistics."""
+    import torch.nn as nn
+
+    from iris_tts_tpu_torch import IrisConfig
+    from iris_tts_tpu_torch.models.discriminators import (
+        HiFiGANDiscriminators,
+    )
+    from iris_tts_tpu_torch.models.encoder import (
+        DurationPredictor,
+        PhonemeEncoder,
+    )
+    from iris_tts_tpu_torch.models.hifigan import HiFiGANGenerator
+    from iris_tts_tpu_torch.models.layers import init_params
+    from iris_tts_tpu_torch.models.postnet import PostNet
+    from iris_tts_tpu_torch.models.vae import TextConditionedVAE
+    from iris_tts_tpu_torch.runtime import seeded_generator
+
+    cfg = IrisConfig()
+    g = torch.Generator().manual_seed(11)
+    b, p, t = 16, 64, 256
+
+    def init(m, seed):
+        init_params(m, seeded_generator(seed, "cpu"))
+        return m.to(dev)
+
+    def batch(shift=False):
+        lengths = torch.randint(16, p + 1, (b,), generator=g)
+        mask = (torch.arange(p)[None] < lengths[:, None]).float()
+        mel = torch.randn(b, t, cfg.vae.n_mels, generator=g)
+        if shift:
+            mel[b // 2:] = 3.0 * mel[b // 2:] + 1.0
+        return {"phoneme_ids": (torch.randint(
+                    2, cfg.encoder.vocab_size, (b, p), generator=g)
+                    * mask).long(),
+                "durations": torch.randint(1, 5, (b, p), generator=g)
+                * mask, "phoneme_mask": mask, "mel": mel}
+
+    def enc_dur():
+        return init(nn.ModuleDict({
+            "encoder": PhonemeEncoder(cfg.encoder),
+            "duration": DurationPredictor(cfg.encoder.embed_dim,
+                                          cfg.duration)}), 1)
+
+    def frozen_vae():
+        return init(TextConditionedVAE(cfg.vae), 2)
+
+    seg = 32
+    hop = cfg.hifigan.total_upsample
+    steps = range(MESH_TRAIN_STEPS)
+    batches = {
+        "duration": [batch() for _ in steps],
+        "vae": [batch() for _ in steps],
+        "postnet": [batch(shift=True) for _ in steps],
+        "gan": [{"mel": torch.randn(b, seg, cfg.vae.n_mels, generator=g),
+                 "audio": 0.3 * torch.randn(b, seg * hop, generator=g)}
+                for _ in steps],
+    }
+    # name → (stage, fresh (module, frozen), batches, lr, extras)
+    return cfg, {
+        "duration": ("duration", lambda: (enc_dur(), None),
+                     batches["duration"], 1e-3, ()),
+        "vae": ("vae", lambda: (frozen_vae(),
+                                {"encoder": enc_dur()["encoder"]}),
+                batches["vae"], 1e-3, (0.5,)),
+        "postnet": ("postnet", lambda: (
+            init(PostNet(cfg.postnet), 3),
+            {"encoder": enc_dur()["encoder"], "vae": frozen_vae()}),
+            batches["postnet"], 1e-3, ()),
+        "gan": ("gan", lambda: ((init(HiFiGANGenerator(cfg.hifigan), 4),
+                                 init(HiFiGANDiscriminators(), 5)), None),
+                batches["gan"], 1e-4, ()),
+    }
+
+
+@contextlib.contextmanager
+def _without_gradient_sum():
+    """A planted fault, for the training check's power only: the train
+    state's gradient all-reduce does nothing within the block."""
+    from iris_tts_tpu_torch.train import state as tstate
+
+    real = tstate.all_reduce_flat_
+    tstate.all_reduce_flat_ = lambda *a, **k: 0
+    try:
+        yield
+    finally:
+        tstate.all_reduce_flat_ = real
+
+
+def _mesh_train_run(cfg, case, dev, mesh, steps: int, fault: bool = False):
+    """Run one case's steps with SGD (clip 1.0), in one process (``mesh``
+    None) or as one rank of ``mesh`` (``mesh_training_placement``; with
+    ``fault``, without the gradient all-reduce) → (state dict(s) after,
+    per-step metrics, median step ms of steps 2+, state dict(s) before,
+    the buffers' names)."""
+    from iris_tts_tpu_torch.scripts.common import mesh_training_placement
+    from iris_tts_tpu_torch.train import steps as tsteps
+    from iris_tts_tpu_torch.train.gan import GANState, make_gan_train_step
+    from iris_tts_tpu_torch.train.state import TrainState, Tx
+
+    stage, make, batches, lr, extras = case
+    module, frozen = make()
+
+    def sgd(m, seed, frozen=None):
+        st = TrainState.create(m, Tx(lr, clip_norm=1.0), seed,
+                               frozen=frozen)
+        st.optimizer = torch.optim.SGD(m.parameters(), lr=lr)
+        return st
+
+    if stage == "gan":
+        state = GANState(sgd(module[0], 5), sgd(module[1], 6))
+        step = make_gan_train_step(cfg)
+    else:
+        state = sgd(module, 5, frozen)
+        step = {"duration": tsteps.make_duration_train_step,
+                "vae": tsteps.make_vae_train_step,
+                "postnet": lambda c: tsteps.make_postnet_train_step(c)
+                }[stage](cfg)
+    place = lambda b: {k: v.to(dev) for k, v in b.items()}  # noqa: E731
+    if mesh is not None:
+        state, place = mesh_training_placement(state, mesh=mesh)
+
+    def snapshot():
+        if stage == "gan":
+            return {**{f"gen.{k}": v.detach().cpu().clone() for k, v in
+                       state.gen.params.state_dict().items()},
+                    **{f"disc.{k}": v.detach().cpu().clone() for k, v in
+                       state.disc.params.state_dict().items()}}
+        return {k: v.detach().cpu().clone()
+                for k, v in state.params.state_dict().items()}
+
+    if stage == "gan":
+        buffers = {f"{side}.{k}" for side, st in (("gen", state.gen),
+                                                  ("disc", state.disc))
+                   for k, _ in st.params.named_buffers()}
+    else:
+        buffers = {k for k, _ in state.params.named_buffers()}
+    before = snapshot()
+    metrics, times = [], []
+    for b in batches[:steps]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (_without_gradient_sum() if fault
+              else contextlib.nullcontext()):
+            state, m = step(state, place(b), *extras)
+        metrics.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return (snapshot(), metrics, statistics.median(times[1:] or times),
+            before, buffers)
+
+
+def _train_errs(got, single) -> dict:
+    """Max-abs of ``got``'s state against the single-process run's, for
+    the params and the buffers apart (float tensors)."""
+    out = {"params": 0.0, "buffers": 0.0}
+    for k, v in single[0].items():
+        if v.is_floating_point():
+            kind = "buffers" if k in single[4] else "params"
+            out[kind] = max(out[kind], max_abs(got[0][k], v))
+    return out
+
+
+def _metric_err(got, single) -> float:
+    return max(abs(a[k] - w[k]) / max(1.0, abs(w[k]))
+               for a, w in zip(got[1], single[1]) for k in w)
+
+
+def _mesh_train_compare(cfg, cases, dev, mesh, steps, label, card,
+                        share: float, metric_tol: float) -> dict:
+    """Each stage in one process, then as a rank of ``mesh``, from the same
+    initial weights on the same batches; params and buffers (BatchNorm
+    statistics) compared, each within ``share`` of the largest change the
+    single-process steps made to them (0: bitwise), and metrics compared.
+    With ``share`` > 0 the mesh steps run again without the gradient
+    all-reduce, and that reading must lie above the limit → per-stage
+    numbers."""
+    out = {}
+    for name, case in cases.items():
+        single = _mesh_train_run(cfg, case, dev, None, steps)
+        meshed = _mesh_train_run(cfg, case, dev, mesh, steps)
+        moved = _train_errs((single[3],), single)
+        limit = {k: share * v for k, v in moved.items()}
+        err = _train_errs(meshed, single)
+        metric_err = _metric_err(meshed, single)
+        check(single[1] and single[1][0], f"{label} {name} metrics")
+        for kind in err:
+            check(err[kind] <= limit[kind],
+                  f"{label} {name} {kind} max-abs {err[kind]} <= "
+                  f"{limit[kind]} ({share} of {moved[kind]})")
+        check(metric_err <= metric_tol,
+              f"{label} {name} metrics {metric_err} <= {metric_tol}")
+        row = {"params_max_abs": err["params"],
+               "buffers_max_abs": err["buffers"],
+               "params_moved": moved["params"],
+               "buffers_moved": moved["buffers"],
+               "metrics_rel": metric_err,
+               "single_ms": single[2], "mesh_ms": meshed[2]}
+        planted = ""
+        if share > 0:
+            faulty = _mesh_train_run(cfg, case, dev, mesh, steps, fault=True)
+            fault = _train_errs(faulty, single)
+            check(max(fault[k] - limit[k] for k in fault) > 0,
+                  f"{label} {name}: without the gradient sum ({fault}) "
+                  f"reads above the limit {limit}")
+            row.update(fault_params_max_abs=fault["params"],
+                       fault_buffers_max_abs=fault["buffers"],
+                       fault_metrics_rel=_metric_err(faulty, single))
+            planted = (f"; without the gradient all-reduce (planted) params "
+                       f"{fault['params']:.3e}, buffers "
+                       f"{fault['buffers']:.3e}, metrics "
+                       f"{row['fault_metrics_rel']:.1e}")
+        out[name] = row
+        print(f"{label} {name}: {steps} SGD step(s) at batch 16 "
+              f"({16 // mesh.data_size} a rank) vs one process: params "
+              f"max-abs {err['params']:.3e} (limit {limit['params']:.3e} = "
+              f"{share} of the steps' largest change {moved['params']:.3e})"
+              f", buffers {err['buffers']:.3e} (limit "
+              f"{limit['buffers']:.3e}), metrics {metric_err:.1e}{planted}; "
+              f"step {single[2]:.2f} ms in one process, {meshed[2]:.2f} ms "
+              f"as a rank of {mesh.size} (median; {card})", flush=True)
+    return out
+
+
+def _stop_flag_ms(mesh) -> float:
+    """Median host ms of the train loop's per-step stop-flag agreement
+    (``parallel.mesh.any_rank``), 50 calls after 5 warm ones."""
+    from iris_tts_tpu_torch.parallel.mesh import any_rank
+
+    times = []
+    for i in range(55):
+        t0 = time.perf_counter()
+        any_rank(False, mesh, "stop_flag")
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times[5:])
+
+
+def _rank_11a(dev, rank: int, workdir: Path) -> dict:
+    """NCCL at world size 1: the 1×1 mesh of a process group calls every
+    collective of its paths on NCCL (a one-rank all-reduce is exact), and
+    every mesh path is bitwise the off-mesh one; then the NCCL all-reduce
+    of the full model's gradient bucket, timed."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from iris_tts_tpu_torch.parallel import build_mesh
+    from iris_tts_tpu_torch.parallel.mesh import COLLECTIVES
+
+    card = card_line()
+    pipe = _serving_pipeline(dev, "phase 11a")
+    mel = np.random.default_rng(7).standard_normal((700, 80)).astype(
+        np.float32)
+    want = (pipe.synthesize(MESH_TEXTS, seed=5, temperature=0.667),
+            pipe.synthesize(MESH_TEXTS, seed=6, temperature=0.667,
+                            fused=True), pipe.vocode(mel))
+    mesh = build_mesh()
+    check(mesh.size == 1 and mesh.backend == "nccl"
+          and mesh.group is not None, "a 1x1 mesh on NCCL")
+    pipe.use_mesh(mesh)
+    got = (pipe.synthesize(MESH_TEXTS, seed=5, temperature=0.667),
+           pipe.synthesize(MESH_TEXTS, seed=6, temperature=0.667,
+                           fused=True), pipe.vocode_sharded(mel))
+    for g_rows, w_rows in zip(got[:2], want[:2]):
+        for g, w in zip(g_rows, w_rows):
+            check(np.array_equal(g, w), "use_mesh bitwise at world size 1")
+    check(np.array_equal(got[2], want[2]),
+          "vocode_sharded bitwise vocode at world size 1")
+    print(f"phase 11a NCCL world size 1: use_mesh synthesize of "
+          f"{len(MESH_TEXTS)} sentences at temperature 0.667 (two-stage and "
+          f"fused) and vocode_sharded of 700 frames bitwise the off-mesh "
+          f"calls", flush=True)
+    # Bitwise needs deterministic kernels: the embedding's and some
+    # convolutions' backward passes otherwise add with atomics, in an order
+    # that differs from run to run (7.5e-9 between two one-process steps).
+    torch.use_deterministic_algorithms(True)
+    cfg, cases = _mesh_train_cases(dev)
+    train = _mesh_train_compare(cfg, cases, dev, mesh, 1, "phase 11a", card,
+                                share=0.0, metric_tol=0.0)
+    torch.use_deterministic_algorithms(False)
+    stop_ms = _stop_flag_ms(mesh)
+    print(f"phase 11a stop flag agreed on the host (gloo side group, CPU "
+          f"tensor) once a train step: {stop_ms:.4f} ms (median of 50; "
+          f"{card})", flush=True)
+    n = sum(p.numel() for p in pipe.model.parameters())
+    flat = torch.ones(n, device=dev)
+    ms = time_cuda_ms(lambda: dist.all_reduce(flat), reps=20, graph=False)
+    print(f"phase 11a NCCL all-reduce of the full model's gradient bucket "
+          f"({n / 1e6:.2f} M f32, {4 * n / 1e6:.1f} MB) at world size 1: "
+          f"{ms:.4f} ms (events around 20 calls; {card})", flush=True)
+    return {"train": train, "grad_bucket_bytes": 4 * n,
+            "nccl_all_reduce_ms": ms, "stop_flag_ms": stop_ms,
+            "collectives": {f"{p} {op} ({b})": c
+                            for (p, op, b), c in COLLECTIVES.items()}}
+
+
+def _rank_11b(dev, rank: int, workdir: Path) -> dict:
+    """gloo at world size 2, both ranks on this card (NCCL refuses two
+    ranks on one GPU): use_mesh, vocode_sharded, the pipeline split, the
+    four stages' mesh steps and ``train_full_pipeline --mesh``."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from iris_tts_tpu_torch.models.pipeline import host_pcm16
+    from iris_tts_tpu_torch.ops import mel_cuda
+    from iris_tts_tpu_torch.parallel import (
+        PipelineParallelSynthesizer,
+        build_mesh,
+    )
+    from iris_tts_tpu_torch.parallel.mesh import COLLECTIVES
+    from iris_tts_tpu_torch.scripts import train_full_pipeline
+
+    card = card_line()
+    label = f"phase 11b rank {rank}"
+    pipe = _serving_pipeline(dev, label)
+    mel = np.random.default_rng(7).standard_normal((700, 80)).astype(
+        np.float32)
+    want_b = pipe.synthesize(MESH_TEXTS, seed=5, temperature=0.667)
+    want_f = pipe.synthesize(MESH_TEXTS, seed=6, temperature=0.667,
+                             fused=True)
+    want_v = pipe.vocode(mel)
+    want_pp = [pipe.synthesize(b, seed=3, fused=True) for b in PP_BATCHES]
+    mesh = build_mesh(devices=[dev] * 2)
+    check(mesh.size == 2 and mesh.backend == "gloo", "a 2x1 gloo mesh")
+    pipe.use_mesh(mesh)
+    worst = {}
+
+    def rows(name, got, want):
+        check(len(got) == len(want), f"{name} rows")
+        err = 0.0
+        for g, w in zip(got, want):
+            check(g.shape == w.shape, f"{name} lengths {g.shape} {w.shape}")
+            err = max(err, max_abs(g, w) / float(np.abs(w).max()))
+        check(err <= MESH_SHAPE_LIMIT,
+              f"{name} {err} of the peak <= {MESH_SHAPE_LIMIT}")
+        worst[name] = err
+
+    t0 = time.perf_counter()
+    rows("use_mesh two-stage", pipe.synthesize(
+        MESH_TEXTS, seed=5, temperature=0.667), want_b)
+    staged_ms = 1e3 * (time.perf_counter() - t0)
+    rows("use_mesh fused", pipe.synthesize(
+        MESH_TEXTS, seed=6, temperature=0.667, fused=True), want_f)
+    rows("vocode_sharded", [pipe.vocode_sharded(mel)], [want_v])
+    got16 = pipe.vocode_sharded(mel, pcm16=True)
+    lsb = int(np.abs(got16.astype(np.int32)
+                     - host_pcm16(want_v).astype(np.int32)).max())
+    check(got16.dtype == np.int16 and lsb <= 1, f"PCM16 within 1 LSB ({lsb})")
+    pp = PipelineParallelSynthesizer(pipe, split=1)
+    got_pp = list(pp.synthesize_batches(PP_BATCHES, seed=3))
+    for i, (g, w) in enumerate(zip(got_pp, want_pp)):
+        rows(f"pipeline split batch {i}", g, w)
+    print(f"{label}: use_mesh of {len(MESH_TEXTS)} sentences ("
+          f"{len(MESH_TEXTS) // 2} a rank, temperature 0.667), "
+          f"vocode_sharded of 700 frames (and PCM16 within {lsb} LSB), "
+          f"pipeline split (split=1, 3 batches) vs one process: worst "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+          + f" of the peak; two-stage call {staged_ms:.1f} ms wall ({card})",
+          flush=True)
+
+    cfg, cases = _mesh_train_cases(dev)
+    train = _mesh_train_compare(cfg, cases, dev, mesh, MESH_TRAIN_STEPS,
+                                label, card, share=MESH_TRAIN_SHARE,
+                                metric_tol=1e-5)
+    stop_ms = _stop_flag_ms(mesh)
+    print(f"{label}: stop flag agreed on the host (the gloo world group, "
+          f"CPU tensor) once a train step: {stop_ms:.4f} ms (median of 50; "
+          f"{card})", flush=True)
+    n = sum(p.numel() for p in pipe.model.parameters())
+    flat = torch.ones(n, device=dev)
+    for _ in range(2):
+        dist.all_reduce(flat)
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(flat)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    gloo_ms = statistics.median(times)
+    print(f"{label}: gloo all-reduce of the full model's gradient bucket "
+          f"({n / 1e6:.2f} M f32, {4 * n / 1e6:.1f} MB, CUDA tensors, two "
+          f"ranks on one card): {gloo_ms:.2f} ms (median of 5, host wall "
+          f"to a synchronize; {card})", flush=True)
+
+    # train_full_pipeline --mesh with phase 10's flags
+    data_root = workdir / "corpus" / "LJSpeech-1.1"
+    cache, out = workdir / "cache", workdir / "run"
+    mel_cuda.log_mel_cuda.launches = 0
+    seen = {}
+    evaluate = train_full_pipeline.evaluate
+
+    def counted(*a, **k):
+        seen["train_launches"] = mel_cuda.log_mel_cuda.launches
+        return evaluate(*a, **k)
+
+    train_full_pipeline.evaluate = counted
+    t0 = time.perf_counter()
+    summary = train_full_pipeline.main([
+        "--data_root", str(data_root),
+        "--alignment_dir", str(workdir / "corpus" / "aligned"),
+        "--cache_dir", str(cache), "--output_dir", str(out),
+        "--batch_size", "16", "--encoder_epochs", "1",
+        "--vae_epochs", "1", "--postnet_epochs", "1",
+        "--gan_epochs", "1", "--gan_batch", "16",
+        "--segment_frames", "32", "--eval_samples", "4",
+        "--artifact_half", "--mesh", "--device", str(dev)])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = mel_cuda.log_mel_cuda.launches
+    train_launches = seen.get("train_launches", launches)
+    print(f"{label}: train_full_pipeline --mesh (phase 10's flags) in "
+          f"{run_s:.1f} s; log-mel launches {train_launches} in the stages, "
+          f"{launches} in all ({card})", flush=True)
+    return {"worst": worst, "pcm16_lsb": lsb, "train": train,
+            "grad_bucket_bytes": 4 * n, "gloo_all_reduce_ms": gloo_ms,
+            "staged_ms": staged_ms, "cli_s": run_s, "stop_flag_ms": stop_ms,
+            "launches": launches, "train_launches": train_launches,
+            "summary": summary,
+            "collectives": {f"{p} {op} ({b})": c
+                            for (p, op, b), c in COLLECTIVES.items()}}
+
+
+def mesh_rank(sub: str, workdir: Path) -> int:
+    """One rank of phase 11 (a child process; see :func:`phase11_mesh`)."""
+    import torch.distributed as dist
+
+    from iris_tts_tpu_torch.parallel import initialize_multihost
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    dev = torch.device("cuda", 0)
+    initialize_multihost(os.environ["MESH_INIT"], world, rank,
+                         backend="nccl" if sub == "11a" else "gloo",
+                         device=dev, timeout_s=240)
+    try:
+        out = (_rank_11a if sub == "11a" else _rank_11b)(dev, rank, workdir)
+        (workdir / f"{sub}_rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _run_ranks(sub: str, world: int, workdir: Path, card: str) -> list:
+    """Start ``world`` rank processes of sub-phase ``sub``, wait for them
+    (at most its deadline) and return their results; a failed or late rank
+    fails the phase, and every rank still running is killed."""
+    env = dict(os.environ, WORLD_SIZE=str(world),
+               MESH_INIT=f"file://{workdir}/store_{sub}",
+               # cuBLAS's deterministic mode (11a's bitwise steps)
+               CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh-rank", sub,
+         str(workdir)], env=dict(env, RANK=str(r), LOCAL_RANK="0"))
+        for r in range(world)]
+    t0 = time.perf_counter()
+    walls = [None] * world
+    try:
+        while None in walls:
+            for r, p in enumerate(procs):
+                if walls[r] is None and p.poll() is not None:
+                    check(p.returncode == 0,
+                          f"phase {sub} rank {r} exited {p.returncode}")
+                    walls[r] = time.perf_counter() - t0
+            check(time.perf_counter() - t0 < MESH_DEADLINE_S[sub],
+                  f"phase {sub} ranks past {MESH_DEADLINE_S[sub]} s")
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    print(f"phase {sub}: {world} rank process(es), wall "
+          + ", ".join(f"rank {r} {w:.1f} s" for r, w in enumerate(walls))
+          + f" (process start and the card's first use included; {card})",
+          flush=True)
+    return [json.loads((workdir / f"{sub}_rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def phase11_mesh(dev, card: str, cli_summary=None) -> int:
+    """Multi-device on one card (see the module docstring): 11a, NCCL at
+    world size 1; 11b, gloo at world size 2 on this card. Returns the
+    log-mel kernel's launches on the mesh path (both ranks). Phase 10's
+    eval summary (``cli_summary``) is printed beside the mesh run's."""
+    import numpy as np
+
+    from iris_tts_tpu_torch.data.audio_io import load_audio
+    from iris_tts_tpu_torch import AudioConfig
+    from iris_tts_tpu_torch.ops.stft import log_mel_spectrogram_plain
+    from iris_tts_tpu_torch.scripts import make_synthetic_corpus
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_")
+    root = Path(tmp.name)
+    try:
+        a = _run_ranks("11a", 1, root, card)[0]
+        want_a = {"use_mesh all_reduce (nccl)",
+                  "frame_bucket all_reduce (nccl)",
+                  "gradients all_reduce (nccl)",
+                  "loss_denominator all_reduce (nccl)",
+                  "batch_norm_stats all_reduce (nccl)",
+                  "metrics all_reduce (nccl)", "replicate broadcast (nccl)",
+                  "stop_flag all_reduce (gloo)"}
+        check(want_a <= set(a["collectives"]),
+              f"11a called every collective: {sorted(a['collectives'])}")
+        print("phase 11a collectives by path (NCCL world size 1; the stop "
+              "flag on a gloo side group): " + json.dumps(a["collectives"]),
+              flush=True)
+        make_synthetic_corpus.main(["--root", str(root / "corpus"),
+                                    "--n", str(CLI_CORPUS)])
+        b = _run_ranks("11b", 2, root, card)
+        for r in b:
+            check(r["collectives"] and all(
+                "all_reduce" in k or "broadcast" in k
+                for k in r["collectives"]), "only all-reduce and broadcast")
+        print("phase 11b collectives by path (rank 0; every path: "
+              "all-reduce into a zero-filled buffer or broadcast, on gloo "
+              "with CUDA tensors as NCCL would take them): "
+              + json.dumps(b[0]["collectives"]), flush=True)
+        for name in a["train"]:
+            print(f"phase 11 {name} step: one process "
+                  f"{b[0]['train'][name]['single_ms']:.2f} ms, a rank of "
+                  f"two (gloo, one card) {b[0]['train'][name]['mesh_ms']:.2f}"
+                  f" ms / {b[1]['train'][name]['mesh_ms']:.2f} ms; NCCL "
+                  f"world size 1 {a['train'][name]['mesh_ms']:.2f} ms "
+                  f"({card})", flush=True)
+        # the mesh CLI run: the cache on rank 0 only, through the kernel
+        data_root = root / "corpus" / "LJSpeech-1.1"
+        mel_files = sorted((root / "cache" / "mels").glob("*.npy"))
+        check(len(mel_files) == CLI_CORPUS,
+              f"a cached mel per clip ({len(mel_files)})")
+        check(b[0]["train_launches"] == CLI_CORPUS,
+              f"rank 0 built the cache: {b[0]['train_launches']} launches")
+        check(b[1]["launches"] == 0,
+              f"rank 1 launched the kernel {b[1]['launches']} times")
+        s0, s1 = b[0]["summary"], b[1]["summary"]
+        check(s1 is None and s0 is not None, "rank 0 alone evaluates")
+        n_resynth = min(4, s0["eval_samples"])
+        check(b[0]["launches"] == CLI_CORPUS + n_resynth,
+              f"rank 0 launches {b[0]['launches']}")
+        check((root / "run" / "pipeline_artifact").is_dir()
+              and s0["artifact_smoke"]["ok"], "the artifact, smoke-checked")
+        audio_cfg = AudioConfig()
+        worst = 0.0
+        for f in mel_files:
+            audio = load_audio(data_root / "wavs" / f"{f.stem}.wav")
+            want = log_mel_spectrogram_plain(
+                torch.from_numpy(audio).to(dev), audio_cfg)
+            cached = np.load(f)
+            check(bool(np.isfinite(cached).all()), f"finite mel {f.stem}")
+            worst = max(worst, max_abs(cached, want))
+        check(worst <= 2e-3, f"mesh cache vs plain max-abs {worst}")
+        ref = cli_summary or {"mcd_db": math.nan, "lsd_db": math.nan,
+                              "control_mcd_db": math.nan}
+        print(f"phase 11b train_full_pipeline --mesh: log-mel launches "
+              f"{b[0]['train_launches']} on rank 0 for the cache (+"
+              f"{n_resynth} scored resynthesis in its eval), "
+              f"{b[1]['launches']} on rank 1; every cached mel within "
+              f"{worst:.3e} of the plain version; held-out MCD "
+              f"{s0['mcd_db']:.3f} dB (phase 10 {ref['mcd_db']:.3f}),"
+              f" LSD {s0['lsd_db']:.3f} dB (phase 10 "
+              f"{ref['lsd_db']:.3f}), control MCD "
+              f"{s0['control_mcd_db']:.3f} (phase 10 "
+              f"{ref['control_mcd_db']:.3f}); run "
+              f"{b[0]['cli_s']:.1f} s ({card})", flush=True)
+        launches = b[0]["launches"] + b[1]["launches"]
+    finally:
+        tmp.cleanup()
+    print(f"phase 11 done in {time.perf_counter() - t_phase:.1f} s ({card})",
           flush=True)
     return launches
 
@@ -1969,8 +2599,12 @@ def main() -> int:
     check(bf16_launches >= 1, "the bf16 path launched the log-mel kernel")
 
     # -- 10. the command-line drivers (the CLI path) --------------------------
-    cli_launches = phase10_cli(dev, card)
+    cli_launches, cli_summary = phase10_cli(dev, card)
     check(cli_launches >= 1, "the CLI path launched the log-mel kernel")
+
+    # -- 11. multi-device on one card (the mesh path) -------------------------
+    mesh_launches = phase11_mesh(dev, card, cli_summary)
+    check(mesh_launches >= 1, "the mesh path launched the log-mel kernel")
 
     # -- where the time goes: one fused synthesize under the profiler --------
     profile_line("fused synthesize", lambda: pipe.synthesize(SENTENCE, seed=1),
@@ -1983,13 +2617,14 @@ def main() -> int:
         "source": "iris_tts_tpu_torch/ops/csrc/log_mel.cu",
         "replaces": f"{jax_pkg}/ops/mel_pallas.py:110",
         "launches": launches + train_launches + serve_launches
-        + aot_launches + bf16_launches + cli_launches,
+        + aot_launches + bf16_launches + cli_launches + mesh_launches,
         "launches_by_path": {"synthesis": launches,
                              "training": train_launches,
                              "serving": serve_launches,
                              "aot_serving": aot_launches,
                              "bf16": bf16_launches,
-                             "cli": cli_launches},
+                             "cli": cli_launches,
+                             "mesh": mesh_launches},
         "max_abs_err": worst,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -2008,4 +2643,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--mesh-rank":
+        sys.exit(mesh_rank(sys.argv[2], Path(sys.argv[3])))
     sys.exit(main())

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from iris_tts_tpu_torch.ops.conv import conv1d, conv_transpose1d
+from iris_tts_tpu_torch.parallel.mesh import draw_rows
 
 # flax's truncated_normal variance_scaling divides by the stddev of a unit
 # normal truncated to [-2, 2].
@@ -59,13 +60,19 @@ def dropout(x: torch.Tensor, rate: float, deterministic: bool,
     ``deterministic`` or ``rate == 0``. The mask is drawn from
     ``generator`` (on ``x``'s device), so a train state that owns the
     generator replays its masks exactly on resume; ``broadcast_dims``
-    share one mask along those axes."""
+    share one mask along those axes. In a data-parallel train step the
+    mask is the global batch's, this rank keeping its rows
+    (``parallel/mesh.draw_rows``)."""
     if deterministic or rate == 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     shape = [1 if i in broadcast_dims else n for i, n in enumerate(x.shape)]
-    keep = torch.rand(shape, generator=generator, device=x.device) >= rate
+    if 0 in broadcast_dims:  # one mask for every row
+        u = torch.rand(shape, generator=generator, device=x.device)
+    else:
+        u = draw_rows(shape, generator, x.device)
+    keep = u >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                            device=x.device))
 

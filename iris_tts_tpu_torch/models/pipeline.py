@@ -37,9 +37,14 @@ exports the same function per (batch, phoneme) bucket with
 pipe, dtype=...)``) computes in bf16 as the JAX package's ``dtype`` does:
 the parameters stay f32, each layer casts at the op
 (``models/layers.py``), frame counts are summed in int32, and the public
-API returns f32 audio and mels. Not in this package yet: the packed
-single-transfer wire format (a TPU transport), meshes and sharded
-vocoding.
+API returns f32 audio and mels. Not in this package: the packed
+single-transfer wire format (a TPU transport).
+
+Multi-device (``parallel/``): :meth:`TTSPipeline.use_mesh` makes every
+entry point data-parallel over a ``torch.distributed`` mesh of processes,
+each rank running its rows of the global batch and every rank returning the
+whole result; :meth:`TTSPipeline.vocode_sharded` splits one mel's time axis
+over the ranks.
 
 Seeds do not reproduce across the two packages: prior noise here comes
 from a ``torch.Generator``. ``temperature=0`` makes the prior sample
@@ -76,6 +81,15 @@ from iris_tts_tpu_torch.models.layers import (
 )
 from iris_tts_tpu_torch.models.postnet import PostNet
 from iris_tts_tpu_torch.models.vae import TextConditionedVAE
+from iris_tts_tpu_torch.parallel.mesh import (
+    all_reduce_,
+    gather_rows,
+    local_only,
+    local_rows,
+    pad_rows,
+    reduce_rows,
+    unwiden,
+)
 from iris_tts_tpu_torch.ops.length import (
     durations_from_log,
     frame_counts,
@@ -230,24 +244,35 @@ def prior_noise(batch: int, latent_dim: int, total_frames: int,
                        device=device, dtype=torch.float32).to(dtype)
 
 
+def fused_mel(model: nn.Module, ids: torch.Tensor, lengths: torch.Tensor,
+              eps: torch.Tensor, temperature, total_frames: int,
+              use_postnet: bool, upsample: str):
+    """The fused path's text→mel work: stage A, compression into the
+    ``total_frames`` budget and the acoustic model on the prior latent
+    ``temperature · eps`` → (mel [B,T,n_mels], n_frames [B] int32, deficit
+    [B]). ``model`` needs only the encoder, duration head, VAE and PostNet
+    (the pipeline split's first stage holds no vocoder)."""
+    enc, frames, _ = stage_a(model, ids, lengths)
+    frames, deficit = compress_durations(frames, total_frames)
+    mel, n_frames = acoustic(model, enc, frames, total_frames,
+                             prior_latent(eps, temperature), use_postnet,
+                             upsample)
+    return mel, n_frames, deficit
+
+
 def fused_synthesis(model: SynthesisModel, ids: torch.Tensor,
                     lengths: torch.Tensor, eps: torch.Tensor, temperature,
                     total_frames: int, use_postnet: bool, upsample: str):
     """The fused path's device work, shared by the live pipeline and the
-    exported programs: stage A, compression into the ``total_frames``
-    budget, the acoustic model on the prior latent ``temperature · eps``,
-    and the vocoder.
+    exported programs: :func:`fused_mel`, then the vocoder.
 
     Inputs: ids [B,P] int64, lengths [B] int64, eps [B, latent,
     T/down_factor] in the model's compute dtype, temperature (float or 0-d
     f32 tensor). Outputs: (audio [B, T·hop] and mel [B,T,n_mels] in the
     compute dtype, n_frames [B] int32, deficit [B]). Nothing in it reads a
     value back to the host."""
-    enc, frames, _ = stage_a(model, ids, lengths)
-    frames, deficit = compress_durations(frames, total_frames)
-    mel, n_frames = acoustic(model, enc, frames, total_frames,
-                             prior_latent(eps, temperature), use_postnet,
-                             upsample)
+    mel, n_frames, deficit = fused_mel(model, ids, lengths, eps, temperature,
+                                       total_frames, use_postnet, upsample)
     return model.hifigan(mel), mel, n_frames, deficit
 
 
@@ -286,6 +311,8 @@ class TTSPipeline:
     _ids_cache: Dict[str, np.ndarray] = field(
         default_factory=dict, init=False, repr=False)
     _ids_cache_max: int = field(default=4096, init=False, repr=False)
+    # The data-parallel mesh of use_mesh (None: this process alone).
+    _mesh: Any = field(default=None, init=False, repr=False)
 
     def __post_init__(self):
         if self.upsample not in UPSAMPLE_MODES:
@@ -548,15 +575,23 @@ class TTSPipeline:
 
     def _prior_noise(self, batch: int, total_frames: int,
                      seed: int) -> torch.Tensor:
-        return prior_noise(batch, self.config.vae.latent_dim, total_frames,
-                           self.config.vae.down_factor, seed, self.device,
-                           self.dtype)
+        """The prior noise of a ``batch``-row request. On a mesh the whole
+        request's noise is drawn and this rank keeps its rows of the padded
+        batch (the pad rows copy the last row's), so the mesh draws what
+        one device does."""
+        eps = prior_noise(batch, self.config.vae.latent_dim, total_frames,
+                          self.config.vae.down_factor, seed, self.device,
+                          self.dtype)
+        if not self._on_mesh():
+            return eps
+        return local_rows(pad_rows(eps, self._mesh.data_size), self._mesh)
 
     def _acoustic(self, enc, frames, seed: int, total_frames: int,
-                  temperature: float):
-        """:func:`acoustic` on the prior sample of ``seed`` →
-        (mel [B,T,n_mels], per-row frame counts [B])."""
-        eps = self._prior_noise(enc.shape[0], total_frames, seed)
+                  temperature: float, n: int):
+        """:func:`acoustic` on the prior sample of ``seed`` for this rank's
+        rows of an ``n``-row request → (mel [B,T,n_mels], per-row frame
+        counts [B])."""
+        eps = self._prior_noise(n, total_frames, seed)
         return acoustic(self.model, enc, frames, total_frames,
                         prior_latent(eps, temperature), self.use_postnet,
                         self.upsample)
@@ -585,11 +620,13 @@ class TTSPipeline:
                  temperature: float, pcm16: bool, n: int,
                  return_mel: bool = False) -> _Dispatch:
         """Acoustic model, vocoder and optional PCM16 on the device, left
-        there (no host sync)."""
+        there (no host sync); on a mesh, this rank's rows of an ``n``-row
+        request, gathered."""
         mel, n_frames = self._acoustic(enc, frames, seed_int, t_bucket,
-                                       temperature)
+                                       temperature, n)
         audio = self._maybe_pcm16(self._vocode_device(mel), pcm16)
-        return _Dispatch(audio, n_frames, mel if return_mel else None, n,
+        return _Dispatch(self._gather(audio, n), self._gather(n_frames, n),
+                         self._gather(mel, n) if return_mel else None, n,
                          pcm16)
 
     def _sync(self) -> None:
@@ -639,11 +676,74 @@ class TTSPipeline:
     def _to_device(self, *arrays: np.ndarray) -> List[torch.Tensor]:
         return [torch.from_numpy(a).to(self.device) for a in arrays]
 
+    # -- mesh (use_mesh) ----------------------------------------------------
+
+    def _on_mesh(self) -> bool:
+        return not local_only(self._mesh)
+
+    def _rows_to_device(self, *arrays: np.ndarray) -> List[torch.Tensor]:
+        """Host arrays of a request → on the device; on a mesh, this rank's
+        rows of the request padded to the data axis with copies of its last
+        row."""
+        if not self._on_mesh():
+            return self._to_device(*arrays)
+        dp = self._mesh.data_size
+        return self._to_device(*(local_rows(pad_rows(a, dp), self._mesh)
+                                 for a in arrays))
+
+    def _gather(self, t: torch.Tensor, n: int) -> torch.Tensor:
+        """This rank's rows → the request's ``n`` rows, on every rank."""
+        if not self._on_mesh():
+            return t
+        return gather_rows(t, self._mesh, n, "use_mesh")
+
+    def use_mesh(self, mesh=None, cfg=None) -> "TTSPipeline":
+        """Data-parallel synthesis over a mesh of processes
+        (``parallel/mesh.py``; default: every rank of the process group on
+        the data axis, each on this pipeline's device).
+
+        Every rank calls the same entry points with the same texts. A
+        request pads to a multiple of the data axis with copies of its last
+        row, each rank runs its rows, and the rows are gathered back, so
+        every rank returns the whole result with the pad rows dropped. The
+        prior noise is the whole request's draw, each rank keeping its
+        rows, and the host's choices (frame buckets, the overflow redo) are
+        taken on global values: the result is the one-device result up to
+        the per-shape choices of convolution algorithms. The parameters
+        are replicated from rank 0. A one-rank mesh changes nothing; a mesh
+        with a model axis raises (``ROADMAP.md`` §A.6b)."""
+        from iris_tts_tpu_torch.config import MeshConfig
+        from iris_tts_tpu_torch.parallel.mesh import build_mesh, world_size
+        from iris_tts_tpu_torch.parallel.sharding import tp_param_sharding
+
+        cfg = cfg or MeshConfig()
+        if mesh is None:
+            mesh = build_mesh(cfg, [self.device] * world_size())
+        missing = {cfg.data_axis, cfg.model_axis} - set(mesh.axis_names)
+        if missing:
+            raise ValueError(
+                f"mesh axes {mesh.axis_names} lack {sorted(missing)}; pass "
+                "a MeshConfig whose data_axis/model_axis match the mesh")
+        tp_param_sharding(self.model, mesh, cfg)
+        self.device = mesh.device
+        self._mesh = mesh
+        return self
+
+    def _stage_a_device(self, ids_np: np.ndarray, lengths_np: np.ndarray):
+        """Stage A on this rank's rows of a padded id batch → (enc, frames,
+        the request's largest predicted total as a 0-d device tensor: the
+        maximum over the ranks on a mesh)."""
+        ids, lengths = self._rows_to_device(ids_np, lengths_np)
+        enc, frames, total = stage_a(self.model, ids, lengths)
+        total = all_reduce_(total.reshape(1), self._mesh, "frame_bucket",
+                            op="max")
+        return enc, frames, total[0]
+
     def _run_stage_a(self, texts: Sequence[str]):
         """Host frontend + stage A + frame-bucket choice (one scalar
         comes back to the host)."""
-        ids, lengths = self._to_device(*self._encode_texts(texts))
-        enc, frames, total_t = stage_a(self.model, ids, lengths)
+        enc, frames, total_t = self._stage_a_device(
+            *self._encode_texts(texts))
         return enc, frames, self._frame_bucket(int(total_t))
 
     def _frame_bucket(self, total: int) -> int:
@@ -700,14 +800,16 @@ class TTSPipeline:
         with the prior noise of ``seed_int`` at the ``t_bucket`` budget.
         Returns the handle and the per-row overflow deficit (device
         tensors)."""
-        ids, lengths = self._to_device(ids_np, lengths_np)
-        eps = self._prior_noise(len(ids_np), t_bucket, seed_int)
+        n = len(ids_np)
+        ids, lengths = self._rows_to_device(ids_np, lengths_np)
+        eps = self._prior_noise(n, t_bucket, seed_int)
         audio, mel, n_frames, deficit = fused_synthesis(
             self.model, ids, lengths, eps, temperature, t_bucket,
             self.use_postnet, self.upsample)
-        return _Dispatch(self._maybe_pcm16(audio, pcm16), n_frames,
-                         mel if return_mel else None, len(ids_np),
-                         pcm16), deficit
+        g = self._gather
+        return _Dispatch(g(self._maybe_pcm16(audio, pcm16), n),
+                         g(n_frames, n), g(mel, n) if return_mel else None,
+                         n, pcm16), g(deficit, n)
 
     def _fused_dispatch(self, texts: Sequence[str], seed_int: int,
                         temperature: float, pcm16: bool,
@@ -818,10 +920,11 @@ class TTSPipeline:
         single = isinstance(text, str)
         texts = [text] if single else list(text)
         enc, frames, t_bucket = self._run_stage_a(texts)
+        n = len(texts)
         mel, n_frames = self._acoustic(enc, frames, self._next_seed(seed),
-                                       t_bucket, temperature)
-        n_np = n_frames.cpu().numpy().astype(np.int64)
-        mel_np = to_host(mel)
+                                       t_bucket, temperature, n)
+        n_np = self._gather(n_frames, n).cpu().numpy().astype(np.int64)
+        mel_np = to_host(self._gather(mel, n))
         outs = [m[: int(k)] for m, k in zip(mel_np, n_np)]
         return outs[0] if single else outs
 
@@ -898,6 +1001,73 @@ class TTSPipeline:
             block_np = to_host(block)[0]
             off = (start_f - start_cl_f) * up
             yield block_np[off:off + (b - a) * up]
+
+    @torch.inference_mode()
+    def vocode_sharded(
+        self,
+        mel,
+        mesh=None,
+        chunk_frames: Optional[int] = None,
+        context_frames: Optional[int] = None,
+        pcm16: bool = False,
+        chunk_multiple: int = 32,
+    ) -> np.ndarray:
+        """Log-mel → waveform, the time axis split over the ranks of a mesh
+        (default: the one :meth:`use_mesh` installed).
+
+        Sequence parallelism for one long utterance: every rank passes the
+        same mel, which is cut into one receptive-field-overlap window per
+        rank (the exact-streaming plan of :meth:`vocode_streaming` with a
+        chunk of ``ceil(T / ranks)`` rounded up to ``chunk_multiple``
+        frames); each rank vocodes its window and keeps its chunk
+        (quantized to PCM16 on the device with ``pcm16``), and the chunks
+        are gathered to every rank and trimmed. No halo is exchanged: the
+        mel is whole on every rank. With fewer windows than ranks the idle
+        ranks redo the last window, and T pads to ``chunk · ranks``; the
+        pad is never read. The result equals :meth:`vocode` of the whole
+        mel up to the per-shape choice of convolution algorithms (a window
+        has another shape than the whole). One rank, or a mel no longer
+        than a window, takes :meth:`vocode` itself."""
+        mesh = mesh if mesh is not None else self._mesh
+        mel = self._mel_tensor(mel)
+        squeeze = mel.ndim == 2
+        if squeeze:
+            mel = mel[None]
+        mel = mel_time_major(mel, self.config.hifigan.in_channels)
+        t = mel.shape[1]
+        n_dev = 1 if mesh is None else mesh.size
+        up = self.config.hifigan.total_upsample
+        if context_frames is None:
+            context_frames = receptive_radius_frames(self.config.hifigan)
+        chunk = chunk_frames or round_up_to_multiple(
+            -(-t // n_dev), max(1, chunk_multiple))
+        window = chunk + 2 * context_frames
+        if n_dev == 1 or t <= window:
+            audio = self.vocode(mel[0] if squeeze else mel)
+            return host_pcm16(audio) if pcm16 else audio
+        plan = list(iter_stream_windows(t, chunk, context_frames))
+        if len(plan) > n_dev:
+            raise ValueError(
+                f"chunk_frames={chunk} yields {len(plan)} windows for "
+                f"{n_dev} ranks; use chunk_frames >= ceil(T/ranks)")
+        padded = plan + [plan[-1]] * (n_dev - len(plan))
+        t_pad = chunk * n_dev
+        mel = torch.nn.functional.pad(mel.contiguous(), (0, 0, 0, t_pad - t))
+        _, _, w0, _, start_cl_f = padded[mesh.rank]
+        chunk_samples = chunk * up
+        block = self._vocode_window(mel[:, w0:w0 + window], start_cl_f * up,
+                                    chunk_samples, pcm16)
+        b = mel.shape[0]
+        buf, _ = reduce_rows(block[None], (n_dev, b, chunk_samples),
+                             block.dtype, block.device, mesh.rank,
+                             mesh.group, mesh.backend, "vocode_sharded")
+        out = to_host(unwiden(buf, block.dtype))  # [ranks, B, chunk·hop]
+        pieces = []
+        for i, (a, b_, _w0, start_f, start_cl) in enumerate(plan):
+            off = (start_f - start_cl) * up
+            pieces.append(out[i][:, off:off + (b_ - a) * up])
+        audio = np.concatenate(pieces, axis=1)
+        return audio[0] if squeeze else audio
 
     # ------------------------------------------------------------------
     # long text
@@ -1100,8 +1270,7 @@ class TTSPipeline:
             for p_bucket in self.phoneme_buckets:
                 ids_np = np.full((b, p_bucket), self.vocab.pad_id, np.int64)
                 lengths_np = np.full((b,), p_bucket, np.int64)
-                enc, frames, _ = stage_a(
-                    self.model, *self._to_device(ids_np, lengths_np))
+                enc, frames, _ = self._stage_a_device(ids_np, lengths_np)
                 stage_a_out[p_bucket] = (enc, frames)
                 n += 1
             for p_bucket, (enc, frames) in stage_a_out.items():

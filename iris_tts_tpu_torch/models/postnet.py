@@ -20,6 +20,7 @@ import torch.nn as nn
 
 from iris_tts_tpu_torch.config import PostNetConfig
 from iris_tts_tpu_torch.models.layers import Conv1d, dropout, set_dtype
+from iris_tts_tpu_torch.parallel.mesh import mean_over_rows
 
 
 class BatchNorm(nn.BatchNorm1d):
@@ -32,7 +33,13 @@ class BatchNorm(nn.BatchNorm1d):
     ``torch.nn.BatchNorm1d`` would blend in the unbiased variance instead,
     and converted statistics would drift from the JAX ones step by step.
     The mode is an argument, not ``self.training``, as in flax. The
-    normalisation runs in f32 and its output is cast to ``dtype``."""
+    normalisation runs in f32 and its output is cast to ``dtype``.
+
+    In a data-parallel train step (``parallel/mesh.sharded_rows``) the
+    batch statistics are the global batch's, as flax's are under GSPMD:
+    the means of x and x² are averaged over the ranks (which hold as many
+    rows) by a differentiable all-reduce. ``nn.SyncBatchNorm`` would blend
+    in the unbiased variance."""
 
     def __init__(self, channels: int, momentum: float = 0.99,
                  eps: float = 1e-3, dtype: torch.dtype = torch.float32):
@@ -46,9 +53,9 @@ class BatchNorm(nn.BatchNorm1d):
             mean, var = self.running_mean, self.running_var
         else:
             xf = x.float()
-            mean = xf.mean(dim=(0, 2))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2)) - mean * mean,
-                              min=0.0)
+            mean, sq = mean_over_rows(torch.stack(
+                [xf.mean(dim=(0, 2)), (xf * xf).mean(dim=(0, 2))]))
+            var = torch.clamp(sq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.flax_momentum
                 self.running_mean.mul_(m).add_((1.0 - m) * mean.detach())

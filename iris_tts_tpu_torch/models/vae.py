@@ -35,6 +35,7 @@ from iris_tts_tpu_torch.models.layers import (
     dropout,
     set_dtype,
 )
+from iris_tts_tpu_torch.parallel.mesh import draw_rows
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -253,8 +254,9 @@ class TextConditionedVAE(nn.Module):
             z = mean
         else:
             if eps is None:
-                eps = torch.randn(mean.shape, generator=generator,
-                                  device=mean.device).to(mean.dtype)
+                # the global batch's draw in a data-parallel step
+                eps = draw_rows(mean.shape, generator, mean.device,
+                                normal=True).to(mean.dtype)
             else:
                 eps = eps.transpose(1, 2)
             z = reparameterize(mean, logvar, eps)

@@ -4,6 +4,12 @@ Counterpart of the JAX package's ``ops/losses.py``, with the same masking
 and denominator conventions. Every reduction is in f32 whatever the dtype
 of its inputs: a low-precision sum over thousands of elements loses mass,
 skewing both the logged metric and the 1/sum(mask) gradient scale.
+
+In a data-parallel train step (``parallel/mesh.sharded_rows``) each rank
+returns its share of the global batch's loss: masked means divide the local
+numerator by the global mask sum (reduced out of the gradient), and plain
+means are scaled by the local over the global row count. The shares, and
+their gradients, sum over the ranks to the single-device values.
 """
 
 from __future__ import annotations
@@ -11,6 +17,8 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple
 
 import torch
+
+from iris_tts_tpu_torch.parallel.mesh import global_sum, row_mean
 
 
 def duration_huber_loss(
@@ -38,8 +46,8 @@ def duration_huber_loss(
                         delta * (abs_diff - 0.5 * delta))
     if mask is not None:
         mask = mask.to(huber.dtype)
-        return torch.sum(huber * mask) / (torch.sum(mask) + 1e-8)
-    return huber.mean()
+        return torch.sum(huber * mask) / (global_sum(torch.sum(mask)) + 1e-8)
+    return row_mean(huber)
 
 
 def masked_l1_loss(
@@ -57,8 +65,9 @@ def masked_l1_loss(
     diff = (target.float() - pred.float()).abs()
     if frame_mask is not None:
         m = frame_mask.to(diff.dtype)[..., None]  # [B, T, 1]
-        return torch.sum(diff * m) / (torch.sum(m) * diff.shape[-1] + 1e-6)
-    return diff.mean()
+        return torch.sum(diff * m) / (global_sum(torch.sum(m))
+                                      * diff.shape[-1] + 1e-6)
+    return row_mean(diff)
 
 
 def kl_divergence(
@@ -77,8 +86,8 @@ def kl_divergence(
     kl = -0.5 * (1.0 + logvar - mean.square() - torch.exp(logvar))
     if latent_mask is not None:
         m = latent_mask.to(kl.dtype)[..., None]  # [B, T', 1]
-        return torch.sum(kl * m) / (torch.sum(m) + 1e-8)
-    return kl.mean()
+        return torch.sum(kl * m) / (global_sum(torch.sum(m)) + 1e-8)
+    return row_mean(kl)
 
 
 def flow_prior_kl(
@@ -96,8 +105,8 @@ def flow_prior_kl(
     kl = 0.5 * u.square() - 0.5 * (1.0 + logvar)
     if latent_mask is not None:
         m = latent_mask.to(kl.dtype)[..., None]
-        return torch.sum(kl * m) / (torch.sum(m) + 1e-8)
-    return kl.mean()
+        return torch.sum(kl * m) / (global_sum(torch.sum(m)) + 1e-8)
+    return row_mean(kl)
 
 
 def vae_loss(
@@ -134,7 +143,7 @@ def lsgan_discriminator_loss(real_outputs: Sequence[torch.Tensor],
     """Least-squares GAN discriminator loss (HiFi-GAN eq. 1)."""
     loss = 0.0
     for dr, df in zip(real_outputs, fake_outputs):
-        loss = loss + torch.mean((dr.float() - 1.0).square()) + torch.mean(
+        loss = loss + row_mean((dr.float() - 1.0).square()) + row_mean(
             df.float().square())
     return loss
 
@@ -144,7 +153,7 @@ def lsgan_generator_loss(fake_outputs: Sequence[torch.Tensor]
     """Least-squares GAN generator adversarial loss (HiFi-GAN eq. 2)."""
     loss = 0.0
     for df in fake_outputs:
-        loss = loss + torch.mean((df.float() - 1.0).square())
+        loss = loss + row_mean((df.float() - 1.0).square())
     return loss
 
 
@@ -153,5 +162,5 @@ def feature_matching_loss(real_features, fake_features) -> torch.Tensor:
     loss = 0.0
     for reals, fakes in zip(real_features, fake_features):
         for r, f in zip(reals, fakes):
-            loss = loss + torch.mean((r.float() - f.float()).abs())
+            loss = loss + row_mean((r.float() - f.float()).abs())
     return loss

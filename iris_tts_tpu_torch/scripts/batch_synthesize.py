@@ -5,7 +5,13 @@ The texts are sorted by phoneme count and cut into batches of
 durations) runs for every batch first; then stage B (acoustic model and
 vocoder) runs grouped by frame bucket, so consecutive calls reuse the same
 shapes. The summary of ``SynthesisMeter`` (realtime factor, mel frames a
-second, latency) is logged and returned. Mesh placement is not here yet.
+second, latency) is logged and returned.
+
+``--mesh`` runs data-parallel over the processes of the
+``torch.distributed`` group (``TTSPipeline.use_mesh``; the batch size
+rounds to a multiple of the ranks, at least one row each), each rank
+synthesizing its rows of every batch; rank 0 writes the WAVs.
+``--force_cpu_devices N`` starts N gloo ranks on the CPU.
 
 Usage:
     python -m iris_tts_tpu_torch.scripts.batch_synthesize \
@@ -24,11 +30,16 @@ import torch
 
 from iris_tts_tpu_torch.config import IrisConfig
 from iris_tts_tpu_torch.data.audio_io import write_wav
-from iris_tts_tpu_torch.models.pipeline import TTSPipeline, stage_a
+from iris_tts_tpu_torch.models.pipeline import TTSPipeline
 from iris_tts_tpu_torch.runtime import resolve_device, wrap_int32
+from iris_tts_tpu_torch.parallel.mesh import is_primary
 from iris_tts_tpu_torch.scripts.common import (
     add_device_arg,
+    add_mesh_arg,
+    mesh_from_args,
+    run_as_script,
     setup_logging,
+    spawn_cpu_ranks,
 )
 from iris_tts_tpu_torch.utils.metrics import SynthesisMeter
 
@@ -60,6 +71,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--seed", type=int, default=1337)
     parser.add_argument("--verbose", action="store_true")
     add_device_arg(parser)
+    add_mesh_arg(parser, model_parallel=False)
     return parser
 
 
@@ -73,7 +85,8 @@ def synthesize_batches(
 
     Stage B of a batch is the pipeline's own two-stage path, so each row
     equals ``pipe.synthesize([texts[i] for i in idxs], seed=batch_seed,
-    fused=False)``."""
+    fused=False)``. On a pipeline's mesh each rank runs its rows of every
+    batch and every rank gets every waveform."""
     encoded = [pipe._text_to_ids_cached(t) for t in texts]
     order = sorted(range(len(texts)), key=lambda i: len(encoded[i]))
     staged = []
@@ -81,9 +94,8 @@ def synthesize_batches(
         idxs = order[start: start + batch_size]
         while len(idxs) < batch_size:  # pad the last batch (dropped below)
             idxs.append(idxs[-1])
-        ids, lengths = pipe._to_device(
-            *pipe._encode_texts([texts[i] for i in idxs]))
-        staged.append((idxs, *stage_a(pipe.model, ids, lengths)))
+        staged.append((idxs, *pipe._stage_a_device(
+            *pipe._encode_texts([texts[i] for i in idxs]))))
 
     # Reading the totals waits for all of stage A, queued back to back.
     by_bucket: Dict[int, list] = {}
@@ -104,15 +116,20 @@ def synthesize_batches(
             plan.append((idxs, batch_seed))
             n_done += len(set(idxs))
             logger.info("bucket T=%d batch %d: P=%d → %d utterances done",
-                        t_bucket, gi, enc.shape[1], n_done)
+                        t_bucket, gi, frames.shape[1], n_done)
     return audio, plan
 
 
 def main(argv=None) -> Dict[str, float]:
     """Returns the meter's summary."""
     args = build_parser().parse_args(argv)
+    if args.force_cpu_devices:
+        return spawn_cpu_ranks(__spec__.name, argv, args.force_cpu_devices)
     setup_logging(args.verbose)
     device = resolve_device(args.device)
+    mesh = mesh_from_args(args, device)
+    if mesh is not None:
+        device = mesh.device
     if args.text_file:
         texts = [line.strip()
                  for line in Path(args.text_file).read_text().splitlines()
@@ -132,13 +149,18 @@ def main(argv=None) -> Dict[str, float]:
             postnet_checkpoint=args.postnet_checkpoint,
             lexicon_path=args.lexicon_path, device=device)
 
+    batch_size = args.batch_size
+    if mesh is not None:
+        pipe.use_mesh(mesh)
+        dp = mesh.data_size
+        batch_size = max(batch_size, dp) // dp * dp
     meter = SynthesisMeter(pipe.config.audio.sample_rate,
                            pipe.config.audio.hop_length)
     meter.start()
-    audio, _ = synthesize_batches(pipe, texts, args.batch_size, args.seed)
+    audio, _ = synthesize_batches(pipe, texts, batch_size, args.seed)
     meter.stop(sum(len(a) for a in audio.values()))
 
-    if args.write_wavs:
+    if args.write_wavs and is_primary(mesh):
         out_dir = Path(args.output_dir)
         out_dir.mkdir(parents=True, exist_ok=True)
         for i, a in sorted(audio.items()):
@@ -152,4 +174,4 @@ def main(argv=None) -> Dict[str, float]:
 
 
 if __name__ == "__main__":
-    main()
+    run_as_script(main)

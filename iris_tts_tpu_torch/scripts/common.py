@@ -6,19 +6,48 @@ argument pattern across every stage (the JAX package's
 one the driver raises, it never carries on on the CPU). ``--checkify``
 runs each train step under ``torch.autograd.detect_anomaly`` and raises at
 the first non-finite metric, the counterpart of JAX's checkify float
-checks. Mesh placement (``--mesh``, ``--model_parallel``) is not here yet.
+checks.
+
+``--mesh`` trains (or synthesizes) data-parallel over the processes of a
+``torch.distributed`` group, one process per device: launch the driver
+under ``torchrun --nproc_per_node N -m iris_tts_tpu_torch.scripts.<name>
+--mesh ...`` and each rank takes ``cuda:{LOCAL_RANK}``.
+``--force_cpu_devices N`` is the counterpart of the JAX package's N virtual
+CPU devices: the driver starts N gloo ranks on the CPU, each running the
+driver with ``--mesh --device cpu``, and waits for them. ``--model_parallel``
+above 1 (tensor parallelism) is not ported yet and raises.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
+import socket
+import subprocess
+import sys
+import time
 from dataclasses import replace
 from pathlib import Path
+from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
-from iris_tts_tpu_torch.config import IrisConfig, load_config, save_config
+from iris_tts_tpu_torch.config import (
+    IrisConfig,
+    MeshConfig,
+    load_config,
+    save_config,
+)
+from iris_tts_tpu_torch.parallel.mesh import (
+    Mesh,
+    build_mesh,
+    initialize_multihost,
+    is_primary,
+    local_rows,
+    world_size,
+)
 
 
 def setup_logging(verbose: bool = False) -> None:
@@ -73,6 +102,8 @@ def resolve_config(args: argparse.Namespace) -> IrisConfig:
 
 
 def persist_config(cfg: IrisConfig, output_dir: str | Path, name: str) -> None:
+    if not is_primary():
+        return
     out = Path(output_dir)
     out.mkdir(parents=True, exist_ok=True)
     save_config(cfg, out / name)
@@ -131,3 +162,146 @@ def run_loop(loop, checkify: bool = False):
     if checkify:
         loop.train_step = checked_step(loop.train_step)
     return loop.run()
+
+
+# -- multi-device ------------------------------------------------------------
+
+# How long a --force_cpu_devices launch waits for its ranks.
+RANK_DEADLINE_S = 1800.0
+
+
+def add_mesh_arg(parser: argparse.ArgumentParser,
+                 model_parallel: bool = True) -> None:
+    parser.add_argument(
+        "--mesh", action="store_true",
+        help="run data-parallel over the processes of the torch.distributed "
+        "group (torchrun's environment; one process per device): batches "
+        "split over the ranks, the state is replicated from rank 0 and the "
+        "gradients are summed over the ranks before clipping")
+    if model_parallel:
+        parser.add_argument(
+            "--model_parallel", type=int, default=1,
+            help="with --mesh: the model axis (tensor parallelism); not "
+            "ported yet, values above 1 raise (ROADMAP.md §A.6b)")
+    parser.add_argument(
+        "--force_cpu_devices", type=int, default=0,
+        help="start N gloo ranks on the CPU, each running this driver with "
+        "--mesh --device cpu, and wait for them (testing without cards)")
+
+
+def mesh_from_args(args: argparse.Namespace,
+                   device: torch.device) -> Optional[Mesh]:
+    """The mesh ``--mesh`` asks for (None without it): joins the process
+    group from torchrun's environment when it is not up yet. A device
+    without an index (``cuda``) means each rank's ``cuda:{LOCAL_RANK}``."""
+    mp = getattr(args, "model_parallel", 1)
+    if not args.mesh:
+        if mp > 1:
+            raise ValueError("--model_parallel needs --mesh")
+        return None
+    initialize_multihost(device=device)
+    devices = None
+    if device.type != "cuda" or device.index is not None:
+        devices = [device] * world_size()
+    return build_mesh(MeshConfig(model_parallel=mp), devices)
+
+
+def mesh_training_placement(state, accum_steps: int = 1,
+                            model_parallel: int = 1,
+                            mesh: Optional[Mesh] = None):
+    """Place a train state and its batches for data-parallel training.
+
+    Returns ``(state, place_batch)``: the state replicated over ``mesh``
+    (default: every rank of the process group on the data axis, each on
+    the state's device), and a function that takes a host or device
+    batch, every rank passing the same global batch, to this rank's rows
+    on the mesh's device (axis 1 when gradient accumulation stacks
+    microbatches in front, so each microbatch spreads over the ranks). The
+    train step itself is unchanged: it reads ``state.mesh``. Masked losses
+    stay exact under the batcher's padded remainder rows because their
+    denominators are global mask sums. ``model_parallel > 1`` raises
+    (ROADMAP.md §A.6b)."""
+    if mesh is None:
+        device = (state.gen if hasattr(state, "gen") else state).generator
+        mesh = build_mesh(MeshConfig(model_parallel=model_parallel),
+                          [device.device] * world_size())
+    state.place_on(mesh)
+    axis = 1 if accum_steps > 1 else 0
+
+    def place_batch(batch):
+        return {k: torch.as_tensor(local_rows(v, mesh, axis)).to(mesh.device)
+                for k, v in batch.items()}
+
+    logging.getLogger(__name__).info("mesh training on %s (data parallel)",
+                                     mesh.shape)
+    return state, place_batch
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_argv(argv: Sequence[str]) -> list:
+    """``argv`` without ``--force_cpu_devices``/``--device``, plus
+    ``--mesh --device cpu``."""
+    out, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+            continue
+        name = a.split("=", 1)[0]
+        if name in ("--force_cpu_devices", "--device"):
+            skip = "=" not in a
+            continue
+        out.append(a)
+    if "--mesh" not in out:
+        out.append("--mesh")
+    return out + ["--device", "cpu"]
+
+
+def spawn_cpu_ranks(module: str, argv: Optional[Sequence[str]],
+                    n: int) -> int:
+    """Run ``python -m module`` as ``n`` gloo ranks on the CPU (each with
+    ``--mesh --device cpu``) and wait for all of them, at most
+    :data:`RANK_DEADLINE_S`: a rank that fails or outlives the deadline
+    fails the launch and every rank still running is killed. Returns 0."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(_free_port()), WORLD_SIZE=str(n))
+    # The ranks share the host's cores.
+    threads = max(1, (os.cpu_count() or 1) // n)
+    env.setdefault("OMP_NUM_THREADS", str(threads))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", module, *_rank_argv(argv)],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r))) for r in range(n)]
+    deadline = time.monotonic() + RANK_DEADLINE_S
+    try:
+        while True:
+            codes = [p.poll() for p in procs]
+            bad = [(r, c) for r, c in enumerate(codes) if c not in (None, 0)]
+            if bad:
+                raise RuntimeError(f"{module}: rank {bad[0][0]} exited "
+                                   f"with {bad[0][1]}")
+            if all(c == 0 for c in codes):
+                return 0
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{module}: ranks still running after "
+                                   f"{RANK_DEADLINE_S} s")
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def run_as_script(main) -> None:
+    """``main()`` as a program: the process group (if any) is left
+    cleanly at exit."""
+    try:
+        main()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

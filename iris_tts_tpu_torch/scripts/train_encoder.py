@@ -21,11 +21,15 @@ from iris_tts_tpu_torch.scripts.common import (
     add_bf16_arg,
     add_checkify_arg,
     add_common_args,
+    add_mesh_arg,
     compute_dtype_of,
+    mesh_from_args,
     persist_config,
     resolve_config,
+    run_as_script,
     run_loop,
     setup_logging,
+    spawn_cpu_ranks,
 )
 from iris_tts_tpu_torch.train import stages
 
@@ -37,20 +41,25 @@ def build_parser() -> argparse.ArgumentParser:
     add_accum_arg(parser)
     add_bf16_arg(parser)
     add_checkify_arg(parser)
+    add_mesh_arg(parser)
     return parser
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.force_cpu_devices:
+        return spawn_cpu_ranks(__spec__.name, argv, args.force_cpu_devices)
     setup_logging(args.verbose)
     device = resolve_device(args.device)
+    mesh = mesh_from_args(args, device)
     cfg = resolve_config(args)
     loop = stages.duration_stage(
         cfg, args.data_root, args.alignment_dir, args.output_dir,
         cache_dir=args.cache_dir, device=device,
         accum_steps=args.accum_steps,
         max_phoneme_length=args.max_phoneme_length,
-        compute_dtype=compute_dtype_of(args))
+        compute_dtype=compute_dtype_of(args),
+        mesh=mesh)
     vocab = loop.batcher.dataset.vocab
     persist_config(
         replace(cfg, encoder=replace(cfg.encoder, vocab_size=len(vocab))),
@@ -59,4 +68,4 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    run_as_script(main)

@@ -22,6 +22,13 @@ and stops the run with exit code 75; a rerun with the same ``--output_dir``
 resumes every stage in place. The checkpoints and the artifact are the
 port's own format (``torch.save`` files), not the JAX package's.
 
+``--mesh`` trains every stage data-parallel over the processes of the
+``torch.distributed`` group (``torchrun --nproc_per_node N -m
+iris_tts_tpu_torch.scripts.train_full_pipeline --mesh ...``; or
+``--force_cpu_devices N`` gloo ranks on the CPU). Rank 0 builds the mel
+cache and writes the checkpoints, metrics and evidence; then it alone runs
+the evaluation and writes the artifact, and the other ranks return None.
+
 Usage (full run on the corpus generator's output):
     python -m iris_tts_tpu_torch.scripts.make_synthetic_corpus \
         --root data_synth --n 600
@@ -59,8 +66,13 @@ from iris_tts_tpu_torch.scripts import (
 from iris_tts_tpu_torch.runtime import resolve_device
 from iris_tts_tpu_torch.scripts.common import (
     add_device_arg,
+    add_mesh_arg,
+    mesh_from_args,
+    run_as_script,
     setup_logging,
+    spawn_cpu_ranks,
 )
+from iris_tts_tpu_torch.parallel.mesh import is_primary
 from iris_tts_tpu_torch.scripts.plot_training_curves import (
     plot_stage,
     read_metrics,
@@ -380,17 +392,24 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--skip_eval", action="store_true")
     parser.add_argument("--verbose", action="store_true")
     add_device_arg(parser)
+    add_mesh_arg(parser, model_parallel=False)
     return parser
 
 
 def main(argv=None):
-    """Returns the eval summary (None with ``--skip_eval``)."""
+    """Returns the eval summary (None with ``--skip_eval``, and on every
+    rank but 0 of a mesh)."""
     args = build_parser().parse_args(argv)
+    if args.force_cpu_devices:
+        return spawn_cpu_ranks(__spec__.name, argv, args.force_cpu_devices)
     setup_logging(args.verbose)
     device = resolve_device(args.device)
+    mesh = mesh_from_args(args, device)
+    primary = is_primary(mesh)
     out_root = Path(args.output_dir)
     out_root.mkdir(parents=True, exist_ok=True)
-    evidence_dir = Path(args.evidence_dir) if args.evidence_dir else None
+    evidence_dir = (Path(args.evidence_dir)
+                    if args.evidence_dir and primary else None)
     if evidence_dir:
         evidence_dir.mkdir(parents=True, exist_ok=True)
     timings: dict = {}
@@ -398,6 +417,8 @@ def main(argv=None):
     def save_timings() -> None:
         """Persisted as each stage ends, so a cut-off run still reports
         stage costs."""
+        if not primary:
+            return
         payload = json.dumps(
             {k: round(v, 1) for k, v in timings.items()}, indent=2)
         (out_root / "timings.json").write_text(payload)
@@ -415,6 +436,8 @@ def main(argv=None):
         common += ["--config", args.config]
     if args.bf16:
         common += ["--bf16"]
+    if mesh is not None:
+        common += ["--mesh"]
 
     # (stage, its timings key, skipped?, driver, the driver's own flags)
     stages = [
@@ -447,9 +470,10 @@ def main(argv=None):
         save_timings()
 
     summary = None
-    if not args.skip_eval:
+    if not args.skip_eval and primary:
         t0 = time.time()
-        summary = evaluate(args, out_root, device)
+        summary = evaluate(args, out_root, device if mesh is None
+                           else mesh.device)
         timings["eval_s"] = time.time() - t0
         save_timings()
         summary["stage_timings_s"] = {
@@ -476,4 +500,4 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    run_as_script(main)

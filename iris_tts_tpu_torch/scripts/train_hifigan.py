@@ -20,10 +20,14 @@ from iris_tts_tpu_torch.scripts.common import (
     add_bf16_arg,
     add_checkify_arg,
     add_common_args,
+    add_mesh_arg,
     compute_dtype_of,
+    mesh_from_args,
     resolve_config,
+    run_as_script,
     run_loop,
     setup_logging,
+    spawn_cpu_ranks,
 )
 from iris_tts_tpu_torch.train import stages
 
@@ -57,13 +61,17 @@ def build_parser() -> argparse.ArgumentParser:
         "(e.g. 0.999); the averaged generator is what from_checkpoints "
         "deploys, 0 disables",
     )
+    add_mesh_arg(parser)
     return parser
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.force_cpu_devices:
+        return spawn_cpu_ranks(__spec__.name, argv, args.force_cpu_devices)
     setup_logging(args.verbose)
     device = resolve_device(args.device)
+    mesh = mesh_from_args(args, device)
     cfg = resolve_config(args)
     loop = stages.gan_stage(
         cfg, args.data_root, args.alignment_dir, args.output_dir,
@@ -71,9 +79,10 @@ def main(argv=None):
         segment_frames=args.segment_frames, disc_width=args.disc_width,
         periods=tuple(args.periods), num_scales=args.num_scales,
         accum_steps=args.accum_steps, ema_decay=args.ema_decay,
-        compute_dtype=compute_dtype_of(args), remat=args.remat)
+        compute_dtype=compute_dtype_of(args), remat=args.remat,
+        mesh=mesh)
     return run_loop(loop, args.checkify)
 
 
 if __name__ == "__main__":
-    main()
+    run_as_script(main)

@@ -16,10 +16,14 @@ from iris_tts_tpu_torch.scripts.common import (
     add_bf16_arg,
     add_checkify_arg,
     add_common_args,
+    add_mesh_arg,
     compute_dtype_of,
+    mesh_from_args,
     resolve_config,
+    run_as_script,
     run_loop,
     setup_logging,
+    spawn_cpu_ranks,
 )
 from iris_tts_tpu_torch.train import stages
 
@@ -43,13 +47,17 @@ def build_parser() -> argparse.ArgumentParser:
         help="config persisted by stage 2 (default: "
         "<output_dir>/vae/config_vae.json; ensures matching architecture)",
     )
+    add_mesh_arg(parser)
     return parser
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.force_cpu_devices:
+        return spawn_cpu_ranks(__spec__.name, argv, args.force_cpu_devices)
     setup_logging(args.verbose)
     device = resolve_device(args.device)
+    mesh = mesh_from_args(args, device)
     vae_config = Path(args.vae_config or Path(args.output_dir) / "vae"
                       / "config_vae.json")
     if vae_config.exists():
@@ -60,9 +68,10 @@ def main(argv=None):
         cache_dir=args.cache_dir, device=device,
         encoder_checkpoint=args.encoder_checkpoint,
         vae_checkpoint=args.vae_checkpoint,
-        compute_dtype=compute_dtype_of(args))
+        compute_dtype=compute_dtype_of(args),
+        mesh=mesh)
     return run_loop(loop, args.checkify)
 
 
 if __name__ == "__main__":
-    main()
+    run_as_script(main)

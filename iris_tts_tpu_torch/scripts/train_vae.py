@@ -20,11 +20,15 @@ from iris_tts_tpu_torch.scripts.common import (
     add_bf16_arg,
     add_checkify_arg,
     add_common_args,
+    add_mesh_arg,
     compute_dtype_of,
+    mesh_from_args,
     persist_config,
     resolve_config,
+    run_as_script,
     run_loop,
     setup_logging,
+    spawn_cpu_ranks,
 )
 from iris_tts_tpu_torch.train import stages
 
@@ -46,20 +50,25 @@ def build_parser() -> argparse.ArgumentParser:
         help="recompute WaveNet-block activations in the backward pass: "
         "less activation memory for one extra block forward",
     )
+    add_mesh_arg(parser)
     return parser
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.force_cpu_devices:
+        return spawn_cpu_ranks(__spec__.name, argv, args.force_cpu_devices)
     setup_logging(args.verbose)
     device = resolve_device(args.device)
+    mesh = mesh_from_args(args, device)
     cfg = resolve_config(args)
     loop = stages.vae_stage(
         cfg, args.data_root, args.alignment_dir, args.output_dir,
         cache_dir=args.cache_dir, device=device,
         accum_steps=args.accum_steps, max_frames=args.max_frames,
         encoder_checkpoint=args.encoder_checkpoint,
-        compute_dtype=compute_dtype_of(args), remat=args.remat)
+        compute_dtype=compute_dtype_of(args), remat=args.remat,
+        mesh=mesh)
     vocab = loop.batcher.dataset.vocab
     persist_config(
         replace(cfg, encoder=replace(cfg.encoder, vocab_size=len(vocab))),
@@ -68,4 +77,4 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    run_as_script(main)

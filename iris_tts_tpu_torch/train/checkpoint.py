@@ -12,6 +12,11 @@ overwritten.
 
 Each file is written to a temporary name and renamed into place, so a
 reader never sees a partial checkpoint. Saves are synchronous.
+
+Data parallelism: given the ``mesh`` of a replicated train state, every rank
+keeps the same bookkeeping but only rank 0 writes, and a save ends with a
+barrier, so the files are there for every rank when it returns. Every rank
+restores from the same files.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from iris_tts_tpu_torch.config import (
     config_from_json,
     config_to_json,
 )
+from iris_tts_tpu_torch.parallel.mesh import barrier, is_primary
 
 logger = logging.getLogger(__name__)
 
@@ -53,7 +59,10 @@ class CheckpointManager:
         config: Optional[IrisConfig] = None,
         keep_every_n: int = 5,
         max_to_keep: int = 5,
+        mesh=None,
     ):
+        self.mesh = mesh
+        self.writer = is_primary(mesh)
         self.directory = Path(directory).absolute()
         self.directory.mkdir(parents=True, exist_ok=True)
         self.keep_every_n = keep_every_n
@@ -67,7 +76,7 @@ class CheckpointManager:
         if self._best_file.exists():
             data = json.loads(self._best_file.read_text())
             self.best_metric = data.get("best_metric", float("inf"))
-        if config is not None:
+        if config is not None and self.writer:
             cfg_file = self.directory / "config.json"
             new_text = config_to_json(config)
             if not cfg_file.exists():
@@ -90,26 +99,36 @@ class CheckpointManager:
         """Save ``state`` at ``step``; track best-on-val separately. Returns
         True if this is a new best. ``epoch`` (completed epochs) pins saves
         at multiples of ``keep_every_n`` against eviction."""
+        try:
+            return self._save(step, state, val_metric, epoch)
+        finally:
+            barrier(self.mesh)
+
+    def _save(self, step, state, val_metric, epoch) -> bool:
         if (epoch is not None and self.keep_every_n
                 and epoch % self.keep_every_n == 0):
             self._pinned.add(int(step))
-            tmp = self._pinned_file.with_suffix(".tmp")
-            tmp.write_text(json.dumps(sorted(self._pinned)))
-            tmp.replace(self._pinned_file)
-        sd = state.state_dict()
-        _atomic_save(sd, self._path(step))
-        # Orbax's policy: the latest max_to_keep saves, plus pinned ones.
-        for s in self.all_steps()[: -self.max_to_keep or None]:
-            if s not in self._pinned:
-                self._path(s).unlink()
+            if self.writer:
+                tmp = self._pinned_file.with_suffix(".tmp")
+                tmp.write_text(json.dumps(sorted(self._pinned)))
+                tmp.replace(self._pinned_file)
+        sd = state.state_dict() if self.writer else None
+        if self.writer:
+            _atomic_save(sd, self._path(step))
+            # Orbax's policy: the latest max_to_keep saves, plus pinned ones.
+            for s in self.all_steps()[: -self.max_to_keep or None]:
+                if s not in self._pinned:
+                    self._path(s).unlink()
         if val_metric is None or not val_metric < self.best_metric:
             return False
-        _atomic_save(sd, self.directory / "best.pt")
+        if self.writer:
+            _atomic_save(sd, self.directory / "best.pt")
         # Recorded after the best state is on disk: a crash in between must
         # not leave a best metric without its state.
         self.best_metric = float(val_metric)
-        self._best_file.write_text(
-            json.dumps({"best_metric": self.best_metric, "step": int(step)}))
+        if self.writer:
+            self._best_file.write_text(json.dumps(
+                {"best_metric": self.best_metric, "step": int(step)}))
         return True
 
     # -- restore -------------------------------------------------------------

@@ -41,6 +41,7 @@ from iris_tts_tpu_torch.ops.losses import (
     lsgan_generator_loss,
 )
 from iris_tts_tpu_torch.ops.stft import log_mel_spectrogram
+from iris_tts_tpu_torch.parallel.mesh import row_mean
 from iris_tts_tpu_torch.runtime import DtypeLike, resolve_dtype
 from iris_tts_tpu_torch.train.state import TrainState
 from iris_tts_tpu_torch.train.steps import _accumulated_grads
@@ -84,7 +85,7 @@ def gen_loss(gen: nn.Module, disc: nn.Module, batch, cfg: IrisConfig):
     adv = lsgan_generator_loss(fake_logits)
     fm = feature_matching_loss(real_feats, fake_feats)
     fake_mel = log_mel_spectrogram(fake, cfg.audio, impl="xla")
-    mel_l1 = torch.mean((fake_mel - real_mel).abs())
+    mel_l1 = row_mean((fake_mel - real_mel).abs())
     total = adv + LAMBDA_FM * fm + LAMBDA_MEL * mel_l1
     return total, {"gen_adv": adv, "gen_fm": fm, "gen_mel_l1": mel_l1,
                    "gen_total": total}
@@ -106,7 +107,7 @@ def make_gan_steps(cfg: IrisConfig, accum_steps: int = 1,
         with modes(gen_state, disc_state):
             metrics = _accumulated_grads(
                 lambda b: disc_loss(disc_state.params, gen_state.params, b),
-                batch, accum_steps)
+                batch, accum_steps, disc_state.mesh)
         return disc_state.apply_gradients(), metrics
 
     def gen_step(gen_state: TrainState, disc_state: TrainState, batch):
@@ -114,7 +115,7 @@ def make_gan_steps(cfg: IrisConfig, accum_steps: int = 1,
             metrics = _accumulated_grads(
                 lambda b: gen_loss(gen_state.params, disc_state.params, b,
                                    cfg),
-                batch, accum_steps)
+                batch, accum_steps, gen_state.mesh)
         return gen_state.apply_gradients(), metrics
 
     return disc_step, gen_step
@@ -146,6 +147,16 @@ class GANState:
     @property
     def params(self) -> nn.Module:
         return self.gen.params
+
+    @property
+    def mesh(self):
+        return self.gen.mesh
+
+    def place_on(self, mesh) -> "GANState":
+        """Replicate both sides over ``mesh`` (``TrainState.place_on``)."""
+        self.gen.place_on(mesh)
+        self.disc.place_on(mesh)
+        return self
 
     @property
     def serving_params(self) -> nn.Module:

@@ -5,6 +5,14 @@ Counterpart of the JAX package's ``train/loop.py``: bucketed batches in
 batch, metrics summed on the device (no per-step host sync), CSV metrics,
 per-epoch validation, best/periodic full-state checkpoints, resume, and a
 clean checkpoint-and-stop on SIGTERM/SIGINT.
+
+On a data-parallel state (``TrainState.place_on``) every rank runs the loop
+over the same epoch shuffles (each keeping its rows of every batch through
+``place_batch``). The step metrics are global, validation runs the whole
+batch on every rank, the checkpoint decision reads rank 0's validation
+metric and the stop decision (SIGTERM/SIGINT on any rank) is agreed by all,
+so every rank takes the same path; rank 0 alone writes the metrics and the
+checkpoints.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from iris_tts_tpu_torch.data.batching import prefetch_to_device, to_device
+from iris_tts_tpu_torch.parallel.mesh import any_rank, broadcast_, local_only
 from iris_tts_tpu_torch.train.checkpoint import CheckpointManager
 from iris_tts_tpu_torch.utils.metrics import MetricsWriter, RunningMean
 
@@ -134,14 +143,30 @@ class TrainLoop:
         return prefetch_to_device(self.batcher.epoch(epoch),
                                   size=self.prefetch, place=place)
 
+    def _stopping(self, stop: threading.Event, mesh) -> bool:
+        """Whether to stop here: on a mesh, whether any rank was told to,
+        agreed on the host (no wait for the steps the device has
+        queued)."""
+        return any_rank(stop.is_set(), mesh, "stop_flag")
+
+    @staticmethod
+    def _agreed(value: Optional[float], mesh) -> Optional[float]:
+        """Rank 0's ``value`` on every rank (a checkpoint decision must not
+        differ between ranks by a rounding)."""
+        if value is None or local_only(mesh):
+            return value
+        t = torch.tensor([value], dtype=torch.float64, device=mesh.device)
+        return float(broadcast_(t, mesh, "val_metric")[0])
+
     def _run(self, state, stop: threading.Event):
+        mesh = getattr(state, "mesh", None)
         for epoch in range(self.start_epoch, self.num_epochs):
             extras = self.epoch_extras(epoch) if self.epoch_extras else ()
             t0 = time.time()
             n_steps = 0
             sums: Optional[Dict[str, torch.Tensor]] = None
             for batch in self._train_batches(epoch):
-                if stop.is_set():
+                if self._stopping(stop, mesh):
                     self._preempt_save(state)
                     return state
                 state, m = self.train_step(state, batch, *extras)
@@ -180,9 +205,9 @@ class TrainLoop:
 
             state.epoch = epoch + 1
             if self.checkpoints is not None:
-                val_metric = val_means.get(f"val_{self.val_metric_key}",
-                                           train_means.get(
-                                               self.val_metric_key))
+                val_metric = self._agreed(val_means.get(
+                    f"val_{self.val_metric_key}",
+                    train_means.get(self.val_metric_key)), mesh)
                 periodic = ((self.checkpoint_every
                              and (epoch + 1) % self.checkpoint_every == 0)
                             or epoch + 1 == self.num_epochs)
@@ -194,7 +219,7 @@ class TrainLoop:
                                              epoch=epoch + 1):
                         logger.info("new best val_%s=%.5f",
                                     self.val_metric_key, val_metric)
-            if stop.is_set():
+            if self._stopping(stop, mesh):
                 self._preempt_save(state)
                 return state
         return state

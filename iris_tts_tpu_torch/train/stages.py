@@ -16,7 +16,13 @@ and :meth:`TTSPipeline.from_checkpoints` assembles a servable pipeline
 from them. ``compute_dtype=torch.bfloat16`` trains a stage in mixed
 precision and ``remat=True`` (VAE, GAN) recomputes block activations in
 the backward pass (``train/steps.py``, ``train/gan.py``); the checkpoints
-hold f32 params either way. Left out here: mesh placement.
+hold f32 params either way.
+
+``mesh`` (``parallel.build_mesh`` of the running processes) trains a stage
+data-parallel: the state is replicated from rank 0 (``TrainState.place_on``),
+each rank keeps its rows of every batch (the batch must divide over the
+data axis), rank 0 alone builds the mel cache and writes the checkpoints
+and metrics, and the other ranks wait for it where they read its files.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from iris_tts_tpu_torch.models.hifigan import HiFiGANGenerator
 from iris_tts_tpu_torch.models.layers import init_params
 from iris_tts_tpu_torch.models.postnet import PostNet
 from iris_tts_tpu_torch.models.vae import TextConditionedVAE
+from iris_tts_tpu_torch.parallel.mesh import barrier, is_primary, local_rows
 from iris_tts_tpu_torch.runtime import (
     DeviceLike,
     DtypeLike,
@@ -75,18 +82,68 @@ def _init(module: nn.Module, seed: int, device: torch.device) -> nn.Module:
     return module.to(device)
 
 
-def _place_fn(device: torch.device, accum_steps: int):
-    if accum_steps == 1:
-        return lambda b: to_device(b, device)
-    return lambda b: to_device(split_microbatches(b, accum_steps), device)
+def _place_fn(device: torch.device, accum_steps: int, mesh=None):
+    """Host batch → device batch: the microbatch split, then this rank's
+    rows (axis 1 once split) on a mesh."""
+    def place(b):
+        if accum_steps > 1:
+            b = split_microbatches(b, accum_steps)
+        if mesh is not None:
+            axis = 1 if accum_steps > 1 else 0
+            b = {k: local_rows(v, mesh, axis) for k, v in b.items()}
+        return to_device(b, device)
+
+    return place
 
 
-def _datasets(cls, data_root, alignment_dir, cache_dir, cfg, **kwargs):
-    train = cls(data_root, alignment_dir, split="train", cache_dir=cache_dir,
-                audio=cfg.audio, **kwargs)
-    val = cls(data_root, alignment_dir, split="val", cache_dir=cache_dir,
-              audio=cfg.audio, **kwargs)
-    return train, val
+def _on_mesh(mesh, device, batch_size: int) -> torch.device:
+    """The device a stage runs on; on a mesh, the rank's, once the batch
+    is known to divide over the data axis."""
+    if mesh is None:
+        return resolve_device(device)
+    if batch_size % mesh.data_size:
+        raise ValueError(
+            f"batch_size={batch_size} does not divide over the "
+            f"{mesh.data_size} ranks of the data axis; training needs "
+            "batch % ranks == 0")
+    return mesh.device
+
+
+def _metrics(path: Path, mesh):
+    return MetricsWriter(path) if is_primary(mesh) else None
+
+
+def _precompute_mels(mesh, *datasets) -> None:
+    """Fill the datasets' mel caches on rank 0; the others wait for it."""
+    if is_primary(mesh):
+        for ds in datasets:
+            ds.precompute_mels()
+    barrier(mesh)
+
+
+def _rank0_first(mesh, build):
+    """``build()`` on rank 0, then on the other ranks: a dataset writes its
+    alignment and vocab caches as it is built, and no rank may read one
+    while another writes it."""
+    if is_primary(mesh):
+        out = build()
+    barrier(mesh)
+    if not is_primary(mesh):
+        out = build()
+    barrier(mesh)
+    return out
+
+
+def _datasets(cls, data_root, alignment_dir, cache_dir, cfg, mesh=None,
+              **kwargs):
+    def build():
+        train = cls(data_root, alignment_dir, split="train",
+                    cache_dir=cache_dir, audio=cfg.audio, **kwargs)
+        val = cls(data_root, alignment_dir, split="val", cache_dir=cache_dir,
+                  audio=cfg.audio, **kwargs)
+        return train, val
+
+    return _rank0_first(mesh, build)
 
 
 def _with_vocab(cfg: IrisConfig, vocab) -> IrisConfig:
@@ -132,14 +189,14 @@ def duration_stage(cfg: IrisConfig, data_root, alignment_dir, out_dir,
                    cache_dir=None, device: DeviceLike = None,
                    accum_steps: int = 1,
                    max_phoneme_length: int = 256,
-                   compute_dtype: DtypeLike = None) -> TrainLoop:
+                   compute_dtype: DtypeLike = None, mesh=None) -> TrainLoop:
     """Stage 1: encoder + duration head (``scripts/train_encoder.py``)."""
-    device = resolve_device(device)
+    device = _on_mesh(mesh, device, cfg.train.batch_size)
     pin_math_precision()
     out = Path(out_dir) / "encoder"
     cache_dir = cache_dir or Path(out_dir) / "cache"
     train_ds, val_ds = _datasets(LJSpeechDurationDataset, data_root,
-                                 alignment_dir, cache_dir, cfg,
+                                 alignment_dir, cache_dir, cfg, mesh,
                                  max_phoneme_length=max_phoneme_length)
     cfg = _with_vocab(cfg, train_ds.vocab)
     params = _init(nn.ModuleDict({
@@ -152,8 +209,11 @@ def duration_stage(cfg: IrisConfig, data_root, alignment_dir, out_dir,
         params, _warmup_cosine_tx(cfg, batcher.num_batches()),
         cfg.train.seed)
     ckpt = CheckpointManager(out / "checkpoints", cfg,
-                             keep_every_n=cfg.train.checkpoint_every_epochs)
+                             keep_every_n=cfg.train.checkpoint_every_epochs,
+                             mesh=mesh)
     state, start_epoch = resume_if_available(ckpt, state)
+    if mesh is not None:
+        state.place_on(mesh)
     return TrainLoop(
         state=state,
         train_step=make_duration_train_step(cfg, accum_steps, compute_dtype),
@@ -161,14 +221,14 @@ def duration_stage(cfg: IrisConfig, data_root, alignment_dir, out_dir,
         num_epochs=cfg.train.num_epochs,
         device=device,
         checkpoints=ckpt,
-        metrics=MetricsWriter(out / "metrics.csv"),
+        metrics=_metrics(out / "metrics.csv", mesh),
         eval_step=make_duration_eval_step(cfg),
         val_batcher=_val_batcher(val_ds, cfg, with_mel=False),
         val_metric_key="duration_loss",
         checkpoint_every=cfg.train.checkpoint_every_epochs,
         start_epoch=start_epoch,
         uses_frozen_in_eval=False,
-        place_batch=_place_fn(device, accum_steps),
+        place_batch=_place_fn(device, accum_steps, mesh),
     )
 
 
@@ -176,18 +236,17 @@ def vae_stage(cfg: IrisConfig, data_root, alignment_dir, out_dir,
               cache_dir=None, device: DeviceLike = None,
               accum_steps: int = 1, max_frames: int = 2048,
               encoder_checkpoint=None, compute_dtype: DtypeLike = None,
-              remat: bool = False) -> TrainLoop:
+              remat: bool = False, mesh=None) -> TrainLoop:
     """Stage 2: VAE over the frozen encoder, with the KL weight annealed by
     epoch (``scripts/train_vae.py``). Builds the mel cache first."""
-    device = resolve_device(device)
+    device = _on_mesh(mesh, device, cfg.train.batch_size)
     pin_math_precision()
     out = Path(out_dir) / "vae"
     cache_dir = cache_dir or Path(out_dir) / "cache"
     train_ds, val_ds = _datasets(LJSpeechVAEDataset, data_root,
-                                 alignment_dir, cache_dir, cfg,
+                                 alignment_dir, cache_dir, cfg, mesh,
                                  max_frames=max_frames, device=device)
-    train_ds.precompute_mels()
-    val_ds.precompute_mels()
+    _precompute_mels(mesh, train_ds, val_ds)
     cfg = _with_vocab(cfg, train_ds.vocab)
     encoder = load_frozen_encoder(
         cfg, encoder_checkpoint or Path(out_dir) / "encoder" / "checkpoints",
@@ -200,8 +259,11 @@ def vae_stage(cfg: IrisConfig, data_root, alignment_dir, out_dir,
         vae, _warmup_cosine_tx(cfg, batcher.num_batches()), cfg.train.seed,
         frozen={"encoder": encoder})
     ckpt = CheckpointManager(out / "checkpoints", cfg,
-                             keep_every_n=cfg.train.checkpoint_every_epochs)
+                             keep_every_n=cfg.train.checkpoint_every_epochs,
+                             mesh=mesh)
     state, start_epoch = resume_if_available(ckpt, state)
+    if mesh is not None:
+        state.place_on(mesh)
 
     def kl_extras(epoch: int):
         return (kl_weight_schedule(epoch, cfg.train.kl_weight_start,
@@ -216,25 +278,25 @@ def vae_stage(cfg: IrisConfig, data_root, alignment_dir, out_dir,
         num_epochs=cfg.train.num_epochs,
         device=device,
         checkpoints=ckpt,
-        metrics=MetricsWriter(out / "metrics.csv"),
+        metrics=_metrics(out / "metrics.csv", mesh),
         eval_step=make_vae_eval_step(cfg),
         val_batcher=_val_batcher(val_ds, cfg, with_mel=True),
         epoch_extras=kl_extras,
         val_metric_key="total",
         checkpoint_every=cfg.train.checkpoint_every_epochs,
         start_epoch=start_epoch,
-        place_batch=_place_fn(device, accum_steps),
+        place_batch=_place_fn(device, accum_steps, mesh),
     )
 
 
 def postnet_stage(cfg: IrisConfig, data_root, alignment_dir, out_dir,
                   cache_dir=None, device: DeviceLike = None,
                   encoder_checkpoint=None, vae_checkpoint=None,
-                  compute_dtype: DtypeLike = None) -> TrainLoop:
+                  compute_dtype: DtypeLike = None, mesh=None) -> TrainLoop:
     """Stage 3: PostNet over the frozen encoder and VAE
     (``scripts/train_postnet.py``). The architecture comes from the config
     recorded beside the VAE checkpoints when there is one."""
-    device = resolve_device(device)
+    device = _on_mesh(mesh, device, cfg.train.batch_size)
     pin_math_precision()
     out = Path(out_dir) / "postnet"
     cache_dir = cache_dir or Path(out_dir) / "cache"
@@ -243,8 +305,8 @@ def postnet_stage(cfg: IrisConfig, data_root, alignment_dir, out_dir,
         cfg = replace(CheckpointManager(vae_dir).load_config(),
                       train=cfg.train)
     train_ds, _ = _datasets(LJSpeechVAEDataset, data_root, alignment_dir,
-                            cache_dir, cfg, device=device)
-    train_ds.precompute_mels()
+                            cache_dir, cfg, mesh, device=device)
+    _precompute_mels(mesh, train_ds)
     cfg = _with_vocab(cfg, train_ds.vocab)
     frozen = {
         "encoder": load_frozen_encoder(
@@ -261,8 +323,11 @@ def postnet_stage(cfg: IrisConfig, data_root, alignment_dir, out_dir,
                               clip_norm=cfg.train.clip_norm),
         cfg.train.seed, frozen=frozen)
     ckpt = CheckpointManager(out / "checkpoints", cfg,
-                             keep_every_n=cfg.train.checkpoint_every_epochs)
+                             keep_every_n=cfg.train.checkpoint_every_epochs,
+                             mesh=mesh)
     state, start_epoch = resume_if_available(ckpt, state)
+    if mesh is not None:
+        state.place_on(mesh)
     return TrainLoop(
         state=state,
         train_step=make_postnet_train_step(cfg, compute_dtype),
@@ -270,11 +335,11 @@ def postnet_stage(cfg: IrisConfig, data_root, alignment_dir, out_dir,
         num_epochs=cfg.train.num_epochs,
         device=device,
         checkpoints=ckpt,
-        metrics=MetricsWriter(out / "metrics.csv"),
+        metrics=_metrics(out / "metrics.csv", mesh),
         val_metric_key="postnet_l1",
         checkpoint_every=cfg.train.checkpoint_every_epochs,
         start_epoch=start_epoch,
-        place_batch=_place_fn(device, 1),
+        place_batch=_place_fn(device, 1, mesh),
     )
 
 
@@ -284,7 +349,7 @@ def gan_stage(cfg: IrisConfig, data_root, alignment_dir, out_dir,
               periods: Sequence[int] = (2, 3, 5, 7, 11), num_scales: int = 3,
               accum_steps: int = 1, ema_decay: float = 0.0,
               compute_dtype: DtypeLike = None,
-              remat: bool = False) -> TrainLoop:
+              remat: bool = False, mesh=None) -> TrainLoop:
     """Stage 4: HiFiGAN adversarial training with MPD/MSD on random
     ``segment_frames``-frame segments (32 → 8192 samples), AdamW-style
     betas (0.8, 0.99) on both sides (``scripts/train_hifigan.py``).
@@ -294,9 +359,11 @@ def gan_stage(cfg: IrisConfig, data_root, alignment_dir, out_dir,
     pin_math_precision()
     out = Path(out_dir) / "hifigan_gan"
     cache_dir = cache_dir or Path(out_dir) / "cache"
-    ds = LJSpeechVAEDataset(data_root, alignment_dir, split="train",
-                            cache_dir=cache_dir, audio=cfg.audio,
-                            device=device)
+    ds = _rank0_first(mesh, lambda: LJSpeechVAEDataset(
+        data_root, alignment_dir, split="train", cache_dir=cache_dir,
+        audio=cfg.audio, device=device))
+    if mesh is not None:  # no rank reads a clip's mel while another writes it
+        _precompute_mels(mesh, ds)
     batcher = AudioSegmentBatcher(ds, cfg.train.batch_size * accum_steps,
                                   segment_frames, cfg.audio,
                                   seed=cfg.train.seed)
@@ -311,8 +378,11 @@ def gan_stage(cfg: IrisConfig, data_root, alignment_dir, out_dir,
                           ema_decay=ema_decay or None),
         TrainState.create(disc, tx, cfg.train.seed + 1))
     ckpt = CheckpointManager(out / "checkpoints", cfg,
-                             keep_every_n=cfg.train.checkpoint_every_epochs)
+                             keep_every_n=cfg.train.checkpoint_every_epochs,
+                             mesh=mesh)
     state, start_epoch = resume_if_available(ckpt, state)
+    if mesh is not None:
+        state.place_on(mesh)
     return TrainLoop(
         state=state,
         train_step=make_gan_train_step(cfg, accum_steps, compute_dtype,
@@ -321,9 +391,9 @@ def gan_stage(cfg: IrisConfig, data_root, alignment_dir, out_dir,
         num_epochs=cfg.train.num_epochs,
         device=device,
         checkpoints=ckpt,
-        metrics=MetricsWriter(out / "metrics.csv"),
+        metrics=_metrics(out / "metrics.csv", mesh),
         val_metric_key="gen_mel_l1",
         checkpoint_every=cfg.train.checkpoint_every_epochs,
         start_epoch=start_epoch,
-        place_batch=_place_fn(device, accum_steps),
+        place_batch=_place_fn(device, accum_steps, mesh),
     )

@@ -18,16 +18,30 @@ gradients in ``.grad``, with optax's semantics:
 Each state owns one ``torch.Generator`` on its device; dropout masks and the
 VAE's noise come from it, and checkpoints carry its state, so a resumed run
 draws the same noise as an uninterrupted one.
+
+Data parallelism: :meth:`TrainState.place_on` replicates a state over a
+mesh of processes (``parallel/mesh.py``), every rank then holding the same
+parameters and generator state, and ``apply_gradients`` sums the gradients
+over the data axis in one flat all-reduce before clipping, so every rank
+applies the same update. A parameter without a gradient counts as zeros, so
+the flat buffer has one layout on every rank.
 """
 
 from __future__ import annotations
 
 import copy
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 import torch.nn as nn
+
+from iris_tts_tpu_torch.parallel.mesh import (
+    all_reduce_flat_,
+    broadcast_flat_,
+    local_only,
+    replicate_params,
+)
 
 LearningRate = Union[float, Callable[[int], float]]
 
@@ -107,6 +121,8 @@ class TrainState:
     frozen: Optional[nn.ModuleDict] = None
     ema_params: Optional[nn.Module] = None
     ema_decay: float = 0.0
+    # The data-parallel mesh of place_on (None: one process).
+    mesh: Any = None
 
     @classmethod
     def create(
@@ -132,6 +148,24 @@ class TrainState:
                    generator=generator, frozen=_frozen(frozen),
                    ema_params=ema, ema_decay=float(ema_decay or 0.0))
 
+    def place_on(self, mesh) -> "TrainState":
+        """Replicate the state over ``mesh`` from rank 0 (params, their
+        buffers, the frozen companions, the EMA average and the generator
+        state) and reduce its gradients over the data axis from now on.
+        The state must already be on the mesh's device."""
+        if self.generator.device != mesh.device:
+            raise ValueError(f"the train state is on {self.generator.device}"
+                             f", the mesh rank on {mesh.device}")
+        for m in (self.params, self.frozen, self.ema_params):
+            if m is not None:
+                replicate_params(m, mesh)
+        if not local_only(mesh):
+            rng = self.generator.get_state().to(mesh.device)
+            broadcast_flat_([rng], mesh.group, mesh.backend, "replicate")
+            self.generator.set_state(rng.cpu())
+        self.mesh = mesh
+        return self
+
     @property
     def batch_stats(self) -> Dict[str, torch.Tensor]:
         """The running statistics of the BatchNorm layers (empty if none)."""
@@ -151,6 +185,7 @@ class TrainState:
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        all_reduce_flat_([p.grad for p in params], self.mesh, "gradients")
         if self.tx.clip_norm:
             clip_by_global_norm_([p.grad for p in params], self.tx.clip_norm)
         lr = self.tx.lr(self.step)

@@ -21,6 +21,14 @@ Batches are dicts of tensors with static bucket shapes:
 (:func:`split_microbatches`) and averages gradients and metrics over the
 microbatches before its single optimizer update.
 
+Data-parallel training (``TrainState.place_on`` a mesh): each rank steps
+on its rows of the global batch. The loss and its backward pass run under
+``parallel/mesh.sharded_rows``, so denominators, BatchNorm statistics and
+random draws are the global batch's; the metrics come back global, and
+``apply_gradients`` sums the gradients over the ranks before clipping.
+``split_microbatches`` stacks in front, so with accumulation a batch's
+axis 1 is what splits over the ranks (each microbatch spreads over them).
+
 ``compute_dtype=torch.bfloat16`` (duration, VAE and PostNet train steps)
 is mixed-precision training as in the JAX package: the modules, frozen
 ones included, compute in bf16 for the step's forward and backward
@@ -42,6 +50,11 @@ import torch.nn as nn
 from iris_tts_tpu_torch.config import IrisConfig
 from iris_tts_tpu_torch.models.layers import computing
 from iris_tts_tpu_torch.ops.length import length_regulate
+from iris_tts_tpu_torch.parallel.mesh import (
+    all_reduce_,
+    local_only,
+    sharded_rows,
+)
 from iris_tts_tpu_torch.ops.losses import (
     duration_huber_loss,
     masked_l1_loss,
@@ -75,12 +88,25 @@ def split_microbatches(batch, accum_steps: int):
 
 def _accumulated_grads(loss_fn: Callable[[Batch], Tuple[torch.Tensor,
                                                         Metrics]],
-                       batch: Batch, accum_steps: int) -> Metrics:
+                       batch: Batch, accum_steps: int,
+                       mesh=None) -> Metrics:
     """Back-propagate ``loss_fn`` into ``.grad``. With ``accum_steps > 1``
     over each microbatch of ``batch`` in turn (one live microbatch of
     activations at a time), each weighted ``1/accum_steps``: the gradients
     and the returned metrics are the microbatch means, the JAX package's
-    accumulation convention."""
+    accumulation convention. On a ``mesh`` the batch holds this rank's rows,
+    and the metrics returned are the global batch's."""
+    with sharded_rows(mesh):
+        metrics = _local_grads(loss_fn, batch, accum_steps)
+    if local_only(mesh):
+        return metrics
+    keys = sorted(metrics)  # one order on every rank
+    flat = all_reduce_(torch.stack([metrics[k].float() for k in keys]),
+                       mesh, "metrics")
+    return {k: flat[i] for i, k in enumerate(keys)}
+
+
+def _local_grads(loss_fn, batch: Batch, accum_steps: int) -> Metrics:
     if accum_steps == 1:
         loss, metrics = loss_fn(batch)
         loss.backward()
@@ -123,7 +149,7 @@ def make_duration_train_step(cfg: IrisConfig, accum_steps: int = 1,
             metrics = _accumulated_grads(
                 lambda b: duration_loss(state.params, b, cfg, False,
                                         state.generator),
-                batch, accum_steps)
+                batch, accum_steps, state.mesh)
         return state.apply_gradients(), metrics
 
     return step
@@ -187,7 +213,7 @@ def make_vae_train_step(cfg: IrisConfig, accum_steps: int = 1,
                 lambda b: vae_stage_loss(state.params, state.frozen, b,
                                          kl_weight, cfg, False,
                                          state.generator),
-                batch, accum_steps)
+                batch, accum_steps, state.mesh)
         return state.apply_gradients(), metrics
 
     return step
@@ -246,7 +272,7 @@ def make_postnet_train_step(cfg: IrisConfig,
             metrics = _accumulated_grads(
                 lambda b: postnet_stage_loss(state.params, state.frozen, b,
                                              False, state.generator),
-                batch, 1)
+                batch, 1, state.mesh)
         return state.apply_gradients(), metrics
 
     return step

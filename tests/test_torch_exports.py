@@ -23,9 +23,7 @@ NOT_YET = {
     },
 }
 # Subpackages the port does not have at all.
-NO_PACKAGE = {
-    "parallel": "ROADMAP §A.6 (multi-device on torch.distributed)",
-}
+NO_PACKAGE = {}
 
 SUBPACKAGES = [""] + sorted(m.name for m in pkgutil.iter_modules(
     iris_tts_tpu.__path__) if m.ispkg)
