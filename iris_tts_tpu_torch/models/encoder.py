@@ -30,6 +30,7 @@ from iris_tts_tpu_torch.config import DurationConfig, EncoderConfig
 from iris_tts_tpu_torch.models.layers import (
     Conv1d,
     Dense,
+    Embedding,
     LayerNorm,
     dropout,
     set_dtype,
@@ -41,14 +42,16 @@ _LN_EPS = 1e-6
 class MultiHeadAttention(nn.Module):
     """``flax.linen.MultiHeadDotProductAttention`` (self-attention, biases
     on every projection). The flax kernels ``[E, H, D]`` / ``[H, D, E]``
-    flatten to plain ``[E, E]`` Dense weights."""
+    flatten to plain ``[E, E]`` Dense weights; on the model axis the query,
+    key and value split ``D`` within each head, as JAX's rule splits their
+    trailing dim, and the output projection splits ``E``."""
 
     def __init__(self, embed_dim: int, num_heads: int):
         super().__init__()
         self.num_heads = num_heads
-        self.query = Dense(embed_dim, embed_dim)
-        self.key = Dense(embed_dim, embed_dim)
-        self.value = Dense(embed_dim, embed_dim)
+        self.query = Dense(embed_dim, embed_dim, heads=num_heads)
+        self.key = Dense(embed_dim, embed_dim, heads=num_heads)
+        self.value = Dense(embed_dim, embed_dim, heads=num_heads)
         self.out = Dense(embed_dim, embed_dim)
 
     def forward(self, x: torch.Tensor,
@@ -112,10 +115,10 @@ class PhonemeEncoder(nn.Module):
         super().__init__()
         self.config = config
         self.dtype = dtype
-        self.phoneme_embedding = nn.Embedding(config.vocab_size,
-                                              config.embed_dim)
-        self.position_embedding = nn.Embedding(config.max_length,
-                                               config.embed_dim)
+        self.phoneme_embedding = Embedding(config.vocab_size,
+                                           config.embed_dim)
+        self.position_embedding = Embedding(config.max_length,
+                                            config.embed_dim)
         self.num_blocks = config.num_blocks
         for i in range(config.num_blocks):
             self.add_module(f"block_{i}", TransformerBlock(

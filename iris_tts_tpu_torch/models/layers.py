@@ -23,6 +23,15 @@ train steps), and :func:`dtype_view` makes a copy of the module tree that
 shares the parameters (``TTSPipeline``'s ``dtype``). Remat
 (``torch.utils.checkpoint``) of a block that draws dropout masks from an
 explicit generator goes through :func:`checkpoint_block`.
+
+The model axis (tensor parallelism, ``parallel/tp.py``): ``Conv1d``,
+``ConvTranspose1d``, ``Conv2d``, ``Dense`` and ``Embedding`` are column
+parallel. :meth:`ColumnParallel.shard_` (called by
+``parallel.sharding.tp_param_sharding``) keeps this rank's slice of the
+output channels as the layer's own ``weight`` (and, where JAX's rule
+splits it too, ``bias``); the layer then computes only those channels and
+gathers them over the model group. The parameter objects stay the same,
+so an optimizer built before sharding keeps them.
 """
 
 from __future__ import annotations
@@ -40,6 +49,12 @@ from torch.utils.checkpoint import checkpoint
 
 from iris_tts_tpu_torch.ops.conv import conv1d, conv_transpose1d
 from iris_tts_tpu_torch.parallel.mesh import draw_rows
+from iris_tts_tpu_torch.parallel.tp import (
+    ColumnSplit,
+    ModelAxis,
+    enter_model,
+    gather_channels,
+)
 
 # flax's truncated_normal variance_scaling divides by the stddev of a unit
 # normal truncated to [-2, 2].
@@ -174,7 +189,72 @@ def same_padding(t: int, k: int, stride: int, dilation: int
     return pl, pad_total - pl
 
 
-class Conv1d(nn.Module):
+class ColumnParallel:
+    """A layer whose output channels can split over the model axis.
+
+    ``_out_dim`` is the output-channel dim of ``weight``, ``_y_dim`` that
+    of the layer's output. :meth:`jax_width` is the trailing dim of the
+    flax kernel the weight converts from (``convert/from_jax.py``), which
+    JAX's rule reads; ``_heads`` splits it within each of that many
+    blocks. ``_split_bias``: the flax bias is 2-D and split with the
+    kernel (attention's query/key/value: ``(H, D)``); any other bias is
+    1-D, which JAX's rule keeps whole."""
+
+    _out_dim = 0
+    _y_dim = 1
+    _heads = 1
+    _split_bias = False
+    tp: Optional[ColumnSplit] = None
+
+    def jax_width(self) -> int:
+        return self.weight.shape[self._out_dim] // self._heads
+
+    def shard_(self, axis: ModelAxis) -> None:
+        """Keep this rank's slice of the output channels (the parameters
+        are replaced in place: ``.data`` becomes the slice)."""
+        if self.tp is not None:
+            raise ValueError("layer already sharded")
+        split = ColumnSplit(axis, self._heads, bias=self._split_bias)
+        self._shard_inputs(split)
+        for name, p in self.split_params(split).items():
+            p.data = split.local(p.data, self.param_dim(name))
+        self.tp = split
+
+    def _shard_inputs(self, split: ColumnSplit) -> None:
+        """Set up the input side of a sharded layer (grouped convs)."""
+
+    def split_params(self, split: Optional[ColumnSplit] = None) -> dict:
+        """name → parameter of the leaves the split holds in part."""
+        split = split or self.tp
+        if split is None:
+            return {}
+        out = {"weight": self.weight}
+        if split.bias:
+            out["bias"] = self.bias
+        return out
+
+    def param_dim(self, name: str) -> int:
+        return self._out_dim if name == "weight" else 0
+
+    def _column(self, x: torch.Tensor, op) -> torch.Tensor:
+        """A sharded layer's forward: ``op(x, weight, bias)`` in the compute
+        dtype on this rank's channels, gathered over the model axis, the
+        whole bias added after the gather where it is not split. (An
+        unsharded layer calls its op directly.)"""
+        dt = self.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        split = self.tp
+        x = enter_model(x.to(dt), split.axis)
+        y = op(x, self.weight.to(dt), bias if split.bias else None)
+        y = gather_channels(y, split, self._y_dim)
+        if bias is None or split.bias:
+            return y
+        shape = [1] * y.ndim
+        shape[self._y_dim % y.ndim] = -1
+        return y + bias.view(shape)
+
+
+class Conv1d(ColumnParallel, nn.Module):
     """1-D conv on ``[B, C_in, T]``, 'SAME' (default) or explicit
     (left, right) padding. ``init``: "lecun" (flax default), "zeros", or
     "normal" (HiFiGAN's normal(0.01) kernels)."""
@@ -204,21 +284,56 @@ class Conv1d(nn.Module):
             nn.init.zeros_(self.weight)
         nn.init.zeros_(self.bias)
 
+    def _shard_inputs(self, split: ColumnSplit) -> None:
+        """A grouped conv's slice of output channels reads only its groups'
+        input channels: the slice holds whole groups (``groups`` divides
+        over the axis) or lies within one group (the axis divides over
+        ``groups``)."""
+        g, n, r = self.groups, split.axis.size, split.axis.rank
+        self._in_slice = None
+        self._local_groups = g
+        if g == 1:
+            return
+        per_in = self.weight.shape[1]  # input channels a group
+        if g % n == 0:
+            self._local_groups = g // n
+            self._in_slice = (r * per_in * g // n, (r + 1) * per_in * g // n)
+        elif n % g == 0:
+            self._local_groups = 1
+            grp = r // (n // g)
+            self._in_slice = (grp * per_in, (grp + 1) * per_in)
+        else:
+            raise ValueError(f"a conv of {g} groups does not split over a "
+                             f"model axis of {n}")
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k = self.weight.shape[-1]
         if isinstance(self.padding, str):
             pad = same_padding(x.shape[-1], k, self.stride, self.dilation)
         else:
             pad = tuple(self.padding)
-        dt = self.dtype
-        return conv1d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
-                      stride=self.stride, dilation=self.dilation,
-                      padding=pad, groups=self.groups)
+        if self.tp is None:
+            dt = self.dtype
+            return conv1d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
+                          stride=self.stride, dilation=self.dilation,
+                          padding=pad, groups=self.groups)
+        sl = self._in_slice
+
+        def op(x, w, b):
+            if sl is not None:
+                x = x[:, sl[0]:sl[1]]
+            return conv1d(x, w, b, stride=self.stride,
+                          dilation=self.dilation, padding=pad,
+                          groups=self._local_groups)
+
+        return self._column(x, op)
 
 
-class ConvTranspose1d(nn.Module):
+class ConvTranspose1d(ColumnParallel, nn.Module):
     """Transposed 1-D conv with torch semantics (crop = (K−u)//2 → T_out =
     T·u). Weight ``[C_in, C_out, K]`` in true-convolution orientation."""
+
+    _out_dim = 1
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int, init: str = "lecun",
@@ -241,12 +356,15 @@ class ConvTranspose1d(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype
-        return conv_transpose1d(x.to(dt), self.weight.to(dt),
-                                self.bias.to(dt), stride=self.stride)
+        if self.tp is None:
+            dt = self.dtype
+            return conv_transpose1d(x.to(dt), self.weight.to(dt),
+                                    self.bias.to(dt), stride=self.stride)
+        return self._column(x, lambda x, w, b: conv_transpose1d(
+            x, w, b, stride=self.stride))
 
 
-class Conv2d(nn.Module):
+class Conv2d(ColumnParallel, nn.Module):
     """2-D conv on ``[B, C, H, W]`` with explicit ((top, bottom), (left,
     right)) padding; weight ``[C_out, C_in, kh, kw]``, flax lecun init."""
 
@@ -267,20 +385,31 @@ class Conv2d(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype
-        return F.conv2d(F.pad(x.to(dt), self.pad), self.weight.to(dt),
-                        self.bias.to(dt), stride=self.stride)
+        if self.tp is None:
+            dt = self.dtype
+            return F.conv2d(F.pad(x.to(dt), self.pad), self.weight.to(dt),
+                            self.bias.to(dt), stride=self.stride)
+        return self._column(x, lambda x, w, b: F.conv2d(
+            F.pad(x, self.pad), w, b, stride=self.stride))
 
 
-class Dense(nn.Linear):
+class Dense(ColumnParallel, nn.Linear):
     """``flax.linen.Dense`` on the last axis; ``zero_init`` for the heads
-    the JAX modules initialise to zero."""
+    the JAX modules initialise to zero. ``heads``: the flax kernel is
+    ``(in, heads, out / heads)`` and the bias ``(heads, out / heads)``
+    (attention's query/key/value), which the model axis splits within each
+    head."""
+
+    _y_dim = -1
 
     def __init__(self, in_features: int, out_features: int,
-                 zero_init: bool = False, dtype: torch.dtype = torch.float32):
+                 zero_init: bool = False, dtype: torch.dtype = torch.float32,
+                 heads: Optional[int] = None):
         self.zero_init = zero_init  # read by reset_parameters() in __init__
         super().__init__(in_features, out_features)
         self.dtype = dtype
+        self._heads = heads or 1
+        self._split_bias = heads is not None
 
     def reset_parameters(self, generator=None) -> None:
         # nn.Linear.__init__ calls this with no generator; the model-level
@@ -292,12 +421,27 @@ class Dense(nn.Linear):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        if self.tp is None:
+            dt = self.dtype
+            return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        return self._column(x, F.linear)
 
     def forward_ct(self, x: torch.Tensor) -> torch.Tensor:
         """Apply on the channel axis of a ``[B, C, T]`` tensor."""
         return self(x.transpose(1, 2)).transpose(1, 2)
+
+
+class Embedding(ColumnParallel, nn.Embedding):
+    """``flax.linen.Embed``: a ``(num, features)`` table, looked up; on the
+    model axis each rank holds its slice of the features."""
+
+    _out_dim = 1
+    _y_dim = -1
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        if self.tp is None:
+            return super().forward(ids)
+        return gather_channels(F.embedding(ids, self.weight), self.tp, -1)
 
 
 class LayerNorm(nn.LayerNorm):

@@ -40,11 +40,13 @@ the parameters stay f32, each layer casts at the op
 API returns f32 audio and mels. Not in this package: the packed
 single-transfer wire format (a TPU transport).
 
-Multi-device (``parallel/``): :meth:`TTSPipeline.use_mesh` makes every
-entry point data-parallel over a ``torch.distributed`` mesh of processes,
-each rank running its rows of the global batch and every rank returning the
-whole result; :meth:`TTSPipeline.vocode_sharded` splits one mel's time axis
-over the ranks.
+Multi-device (``parallel/``): :meth:`TTSPipeline.use_mesh` runs every
+entry point over a ``(data, model)`` mesh of ``torch.distributed``
+processes: each data coordinate runs its rows of the global batch, the
+ranks of one model group run the same rows with the wide layers' output
+channels split between them (tensor parallelism, ``parallel/tp.py``), and
+every rank returns the whole result; :meth:`TTSPipeline.vocode_sharded`
+splits one mel's time axis over every rank.
 
 Seeds do not reproduce across the two packages: prior noise here comes
 from a ``torch.Generator``. ``temperature=0`` makes the prior sample
@@ -90,6 +92,7 @@ from iris_tts_tpu_torch.parallel.mesh import (
     reduce_rows,
     unwiden,
 )
+from iris_tts_tpu_torch.parallel.sharding import full_state_dict
 from iris_tts_tpu_torch.ops.length import (
     durations_from_log,
     frame_counts,
@@ -311,7 +314,7 @@ class TTSPipeline:
     _ids_cache: Dict[str, np.ndarray] = field(
         default_factory=dict, init=False, repr=False)
     _ids_cache_max: int = field(default=4096, init=False, repr=False)
-    # The data-parallel mesh of use_mesh (None: this process alone).
+    # The (data, model) mesh of use_mesh (None: this process alone).
     _mesh: Any = field(default=None, init=False, repr=False)
 
     def __post_init__(self):
@@ -486,12 +489,16 @@ class TTSPipeline:
         The format is the port's own: this package does not read the orbax
         directories the JAX package's ``save`` writes, and the JAX package
         does not read these. Weights cross between the packages through
-        :meth:`from_jax_params`."""
+        :meth:`from_jax_params`. A pipeline sharded over a model axis
+        writes whole tensors: every rank of the axis calls ``save`` (the
+        slices are gathered), each to a path of its own or rank 0 alone
+        writing."""
         from iris_tts_tpu_torch.train.checkpoint import save_params
 
         path = Path(path)
         path.mkdir(parents=True, exist_ok=True)
-        sd = {k: v.detach().cpu() for k, v in self.model.state_dict().items()}
+        sd = {k: v.detach().cpu()
+              for k, v in full_state_dict(self.model).items()}
         if half:
             sd = {k: v.half() if v.is_floating_point() else v
                   for k, v in sd.items()}
@@ -698,20 +705,27 @@ class TTSPipeline:
         return gather_rows(t, self._mesh, n, "use_mesh")
 
     def use_mesh(self, mesh=None, cfg=None) -> "TTSPipeline":
-        """Data-parallel synthesis over a mesh of processes
+        """Synthesis over a ``(data, model)`` mesh of processes
         (``parallel/mesh.py``; default: every rank of the process group on
         the data axis, each on this pipeline's device).
 
         Every rank calls the same entry points with the same texts. A
         request pads to a multiple of the data axis with copies of its last
-        row, each rank runs its rows, and the rows are gathered back, so
-        every rank returns the whole result with the pad rows dropped. The
-        prior noise is the whole request's draw, each rank keeping its
-        rows, and the host's choices (frame buckets, the overflow redo) are
-        taken on global values: the result is the one-device result up to
-        the per-shape choices of convolution algorithms. The parameters
-        are replicated from rank 0. A one-rank mesh changes nothing; a mesh
-        with a model axis raises (``ROADMAP.md`` §A.6b)."""
+        row, each data coordinate runs its rows, and the rows are gathered
+        back, so every rank returns the whole result with the pad rows
+        dropped. The prior noise is the whole request's draw, each data
+        coordinate keeping its rows, and the host's choices (frame buckets,
+        the overflow redo) are taken on global values: the result is the
+        one-device result up to the per-shape choices of convolution
+        algorithms. The parameters are replicated from world rank 0; a
+        model axis wider than one rank then shards them by JAX's rule
+        (``parallel.sharding.tp_param_sharding``): the ranks of one model
+        group run the same rows, each computing its slice of every wide
+        layer's output channels. The model is copied before it is sharded,
+        so a pipeline that shared it keeps the whole one. A one-rank mesh
+        changes nothing."""
+        import copy
+
         from iris_tts_tpu_torch.config import MeshConfig
         from iris_tts_tpu_torch.parallel.mesh import build_mesh, world_size
         from iris_tts_tpu_torch.parallel.sharding import tp_param_sharding
@@ -724,6 +738,8 @@ class TTSPipeline:
             raise ValueError(
                 f"mesh axes {mesh.axis_names} lack {sorted(missing)}; pass "
                 "a MeshConfig whose data_axis/model_axis match the mesh")
+        if mesh.model_size > 1:
+            self.model = copy.deepcopy(self.model)
         tp_param_sharding(self.model, mesh, cfg)
         self.device = mesh.device
         self._mesh = mesh
@@ -1017,17 +1033,20 @@ class TTSPipeline:
 
         Sequence parallelism for one long utterance: every rank passes the
         same mel, which is cut into one receptive-field-overlap window per
-        rank (the exact-streaming plan of :meth:`vocode_streaming` with a
-        chunk of ``ceil(T / ranks)`` rounded up to ``chunk_multiple``
-        frames); each rank vocodes its window and keeps its chunk
-        (quantized to PCM16 on the device with ``pcm16``), and the chunks
-        are gathered to every rank and trimmed. No halo is exchanged: the
-        mel is whole on every rank. With fewer windows than ranks the idle
-        ranks redo the last window, and T pads to ``chunk · ranks``; the
-        pad is never read. The result equals :meth:`vocode` of the whole
-        mel up to the per-shape choice of convolution algorithms (a window
-        has another shape than the whole). One rank, or a mel no longer
-        than a window, takes :meth:`vocode` itself."""
+        rank of the whole mesh, both axes (the exact-streaming plan of
+        :meth:`vocode_streaming` with a chunk of ``ceil(T / ranks)``
+        rounded up to ``chunk_multiple`` frames); each rank keeps its
+        window's chunk (quantized to PCM16 on the device with ``pcm16``),
+        and the chunks are gathered to every rank and trimmed. The ranks of
+        one model group vocode their windows together as one batch (one
+        window at ``model_parallel`` 1), each keeping its own.
+        No halo is exchanged: the mel is whole on every rank. With fewer
+        windows than ranks the idle ranks redo the last window, and T pads
+        to ``chunk · ranks``; the pad is never read. The result equals
+        :meth:`vocode` of the whole mel up to the per-shape choice of
+        convolution algorithms (a window has another shape than the whole).
+        One rank, or a mel no longer than a window, takes :meth:`vocode`
+        itself."""
         mesh = mesh if mesh is not None else self._mesh
         mel = self._mel_tensor(mel)
         squeeze = mel.ndim == 2
@@ -1053,14 +1072,21 @@ class TTSPipeline:
         padded = plan + [plan[-1]] * (n_dev - len(plan))
         t_pad = chunk * n_dev
         mel = torch.nn.functional.pad(mel.contiguous(), (0, 0, 0, t_pad - t))
-        _, _, w0, _, start_cl_f = padded[mesh.rank]
-        chunk_samples = chunk * up
-        block = self._vocode_window(mel[:, w0:w0 + window], start_cl_f * up,
-                                    chunk_samples, pcm16)
         b = mel.shape[0]
+        chunk_samples = chunk * up
+        # this model group's lanes as one batch; this rank keeps its own
+        mp = mesh.model_size
+        lanes = padded[mesh.rank * mp:(mesh.rank + 1) * mp]
+        audio = self._vocode_device(torch.cat(
+            [mel[:, w0:w0 + window] for _, _, w0, _, _ in lanes]))
+        start = lanes[mesh.model_rank][4] * up
+        block = self._maybe_pcm16(
+            audio[mesh.model_rank * b:(mesh.model_rank + 1) * b,
+                  start:start + chunk_samples], pcm16)
         buf, _ = reduce_rows(block[None], (n_dev, b, chunk_samples),
-                             block.dtype, block.device, mesh.rank,
-                             mesh.group, mesh.backend, "vocode_sharded")
+                             block.dtype, block.device, mesh.world_rank,
+                             mesh.world_group, mesh.backend,
+                             "vocode_sharded")
         out = to_host(unwiden(buf, block.dtype))  # [ranks, B, chunk·hop]
         pieces = []
         for i, (a, b_, _w0, start_f, start_cl) in enumerate(plan):

@@ -1,5 +1,7 @@
-"""Multi-device execution on ``torch.distributed``: data-parallel
-synthesis and training, sequence-parallel vocoding
+"""Multi-device execution on ``torch.distributed``: synthesis and training
+over a ``(data, model)`` mesh (the batch split over the data axis, the
+wide layers' output channels over the model axis: ``tp.py``,
+``sharding.py``), sequence-parallel vocoding
 (``TTSPipeline.vocode_sharded``) and the two-stage pipeline split."""
 
 from iris_tts_tpu_torch.parallel.mesh import (

@@ -7,6 +7,15 @@ process per device, every rank runs the same program on the same global
 inputs, keeps its own rows of each batch, and calls the collectives itself.
 JAX's multi-host mode (``initialize_multihost``) has the same shape.
 
+The mesh is 2-D, ``(data, model)``, laid over the world's ranks as JAX's
+``reshape(dp, mp)`` lays devices: world rank ``r`` has data coordinate
+``r // mp`` and model coordinate ``r % mp``. The data axis splits the
+batch; the model axis splits wide output channels (``parallel/tp.py``,
+``parallel/sharding.py``). Each rank's collectives on the data axis run
+over its data sub-group (the ranks of its model coordinate), those on the
+model axis over its model sub-group; parameter replication, the barrier,
+the host stop flag and the writer (world rank 0) are the world's.
+
 A single process with no process group gets a 1×1 mesh that needs no
 collectives, so the same code serves one device and many. Where a process
 group exists, a mesh calls its collectives even at one rank (a one-rank
@@ -65,9 +74,13 @@ class Mesh:
     """The port's ``(data, model)`` mesh as one rank sees it.
 
     ``shape`` maps the axis names to their sizes, as ``jax.sharding.Mesh``
-    does. ``rank`` is this process's index on the data axis, ``device`` the
-    device it computes on, and ``group`` the data axis' process group
-    (None without a process group: that mesh makes no collective call)."""
+    does. ``rank`` is this process's coordinate on the data axis, ``device``
+    the device it computes on, and ``group`` the data axis' process group
+    over the ranks of this rank's model coordinate (None without a process
+    group: that mesh makes no collective call). ``model_rank`` and
+    ``model_group`` are the same for the model axis (no group where the
+    model axis has one rank), and ``world_group`` is the group of every
+    rank."""
 
     shape: Dict[str, int]
     axis_names: Tuple[str, str]
@@ -75,6 +88,9 @@ class Mesh:
     device: torch.device
     group: Any = None
     backend: Optional[str] = None
+    model_rank: int = 0
+    model_group: Any = None
+    world_group: Any = None
 
     @property
     def size(self) -> int:
@@ -83,6 +99,16 @@ class Mesh:
     @property
     def data_size(self) -> int:
         return self.shape[self.axis_names[0]]
+
+    @property
+    def model_size(self) -> int:
+        return self.shape[self.axis_names[1]]
+
+    @property
+    def world_rank(self) -> int:
+        """This rank's index in the world (``rank · model_size +
+        model_rank``)."""
+        return self.rank * self.model_size + self.model_rank
 
 
 def local_only(mesh: Optional[Mesh]) -> bool:
@@ -118,17 +144,14 @@ def build_mesh(cfg: MeshConfig = MeshConfig(),
 
     ``devices`` lists one device per rank (this rank computes on
     ``devices[rank]``); by default each rank takes ``cuda:{LOCAL_RANK}``.
-    ``cfg.data_parallel == 0`` means every rank on the data axis. The model
-    axis (tensor parallelism) is not ported: ``model_parallel > 1``
-    raises."""
+    ``cfg.data_parallel == 0`` means every rank the model axis leaves on the
+    data axis. The world is laid out as ``reshape(dp, mp)``; a layout that
+    does not cover the world raises. Every rank makes every sub-group, in
+    the same order (``new_group``)."""
     rank, world, backend = process_group_info()
     mp = max(1, cfg.model_parallel)
-    if mp > 1:
-        raise NotImplementedError(
-            f"model_parallel={mp}: the model axis (tensor parallelism) is "
-            "not ported yet, see ROADMAP.md §A.6b")
     dp = cfg.data_parallel or world // mp
-    if dp * mp != world:
+    if dp < 1 or dp * mp != world:
         raise ValueError(f"mesh {dp}x{mp} does not cover {world} "
                          "process(es); adjust data_parallel/model_parallel")
     if devices is None:
@@ -139,9 +162,20 @@ def build_mesh(cfg: MeshConfig = MeshConfig(),
             raise ValueError(f"{len(devices)} devices for {world} "
                              "process(es): give one device per rank")
         device = torch.device(devices[rank])
-    return Mesh({cfg.data_axis: dp, cfg.model_axis: mp},
-                (cfg.data_axis, cfg.model_axis), rank, device,
-                dist.group.WORLD if backend is not None else None, backend)
+    shape = {cfg.data_axis: dp, cfg.model_axis: mp}
+    names = (cfg.data_axis, cfg.model_axis)
+    if backend is None:
+        return Mesh(shape, names, 0, device)
+    world_group = dist.group.WORLD
+    if mp == 1:
+        return Mesh(shape, names, rank, device, world_group, backend, 0,
+                    None, world_group)
+    data_groups = [new_group([d * mp + m for d in range(dp)])
+                   for m in range(mp)]
+    model_groups = [new_group([d * mp + m for m in range(mp)])
+                    for d in range(dp)]
+    return Mesh(shape, names, rank // mp, device, data_groups[rank % mp],
+                backend, rank % mp, model_groups[rank // mp], world_group)
 
 
 def initialize_multihost(
@@ -204,23 +238,28 @@ def new_group(ranks: Sequence[int], backend: Optional[str] = None):
 _HOST_GROUP: Dict[Any, Any] = {}
 
 
+def host_group(mesh: Mesh):
+    """A gloo group over the world's ranks, for what the hosts agree on:
+    the world group where it is gloo, else a gloo group made at the first
+    call (which every rank makes at the same point)."""
+    if mesh.backend == "gloo":
+        return mesh.world_group
+    key = mesh.world_group
+    if key not in _HOST_GROUP:
+        _HOST_GROUP.clear()  # a group of an earlier world is gone
+        _HOST_GROUP[key] = new_group(range(world_size()), "gloo")
+    return _HOST_GROUP[key]
+
+
 def any_rank(flag: bool, mesh: Optional[Mesh], path: str) -> bool:
-    """Whether ``flag`` is set on any rank of ``mesh``, agreed on the host:
-    a CPU tensor's all-reduce over gloo (the mesh's own group when it is
-    gloo, else a gloo group made at the first call, which every rank makes
-    at the same point), so it waits for no device work the rank has
-    queued."""
+    """Whether ``flag`` is set on any rank of the world, agreed on the
+    host: a CPU tensor's all-reduce over :func:`host_group`, so it waits
+    for no device work the rank has queued."""
     if local_only(mesh):
         return flag
-    group = mesh.group
-    if mesh.backend != "gloo":
-        if group not in _HOST_GROUP:
-            _HOST_GROUP.clear()  # a group of an earlier world is gone
-            _HOST_GROUP[group] = new_group(range(world_size()), "gloo")
-        group = _HOST_GROUP[group]
     t = torch.tensor([int(flag)], dtype=torch.int32)
     COLLECTIVES[(path, "all_reduce", "gloo")] += 1
-    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=host_group(mesh))
     return bool(t[0])
 
 
@@ -233,7 +272,7 @@ def any_rank(flag: bool, mesh: Optional[Mesh], path: str) -> bool:
 class Sharding:
     """How a tensor lies on a mesh: its ``axis`` split over the data axis
     (each rank keeps its own block of rows), or, with ``axis=None``,
-    whole on every rank (broadcast from rank 0)."""
+    whole on every rank (broadcast from world rank 0)."""
 
     mesh: Mesh
     axis: Optional[int] = 0
@@ -280,12 +319,12 @@ def shard_batch(batch, mesh: Mesh, cfg: MeshConfig = MeshConfig(),
 
 def replicate_params(params, mesh: Mesh):
     """Put a module's parameters and buffers (or a tree of tensors) on the
-    mesh's device, each equal to rank 0's."""
+    mesh's device, each equal to world rank 0's."""
     if isinstance(params, nn.Module):
         params.to(mesh.device)
         if not local_only(mesh):
             tensors = list(params.parameters()) + list(params.buffers())
-            broadcast_flat_([t.data for t in tensors], mesh.group,
+            broadcast_flat_([t.data for t in tensors], mesh.world_group,
                             mesh.backend, "replicate")
         return params
     return _tree_map(replicated(mesh).place, params)
@@ -375,10 +414,12 @@ def all_reduce_(t: torch.Tensor, mesh: Optional[Mesh], path: str,
 
 def broadcast_(t: torch.Tensor, mesh: Optional[Mesh], path: str,
                src: int = 0) -> torch.Tensor:
+    """In-place broadcast of ``t`` from world rank ``src`` to every rank;
+    identity without a process group."""
     if local_only(mesh):
         return t
     COLLECTIVES[(path, "broadcast", mesh.backend)] += 1
-    dist.broadcast(t, src=src, group=mesh.group)
+    dist.broadcast(t, src=src, group=mesh.world_group)
     return t
 
 
@@ -420,12 +461,15 @@ def barrier(mesh: Optional[Mesh]) -> None:
     if local_only(mesh):
         return
     COLLECTIVES[("barrier", "all_reduce", mesh.backend)] += 1
-    dist.all_reduce(torch.zeros(1, device=mesh.device), group=mesh.group)
+    dist.all_reduce(torch.zeros(1, device=mesh.device),
+                    group=mesh.world_group)
 
 
 def is_primary(mesh: Optional[Mesh] = None) -> bool:
-    """True on the rank that writes files (rank 0, or a lone process)."""
-    return process_group_info()[0] == 0 if mesh is None else mesh.rank == 0
+    """True on the rank that writes files (world rank 0, or a lone
+    process)."""
+    return (process_group_info()[0] if mesh is None
+            else mesh.world_rank) == 0
 
 
 # ---------------------------------------------------------------------------

@@ -61,6 +61,11 @@ class PipelineParallelSynthesizer:
         split: Optional[int] = None,
         inflight: int = 2,
     ):
+        from iris_tts_tpu_torch.parallel.sharding import is_sharded
+
+        if is_sharded(pipe.model):
+            raise ValueError("the pipeline split is data-only (as JAX's): "
+                             "give it a pipeline without a model axis")
         rank, world, backend = process_group_info()
         if world < 2:
             raise ValueError(

@@ -14,8 +14,11 @@ under ``torchrun --nproc_per_node N -m iris_tts_tpu_torch.scripts.<name>
 --mesh ...`` and each rank takes ``cuda:{LOCAL_RANK}``.
 ``--force_cpu_devices N`` is the counterpart of the JAX package's N virtual
 CPU devices: the driver starts N gloo ranks on the CPU, each running the
-driver with ``--mesh --device cpu``, and waits for them. ``--model_parallel``
-above 1 (tensor parallelism) is not ported yet and raises.
+driver with ``--mesh --device cpu``, and waits for them.
+``--model_parallel N`` (with ``--mesh``) lays the ranks out as a
+``(world / N, N)`` mesh: each group of N consecutive ranks shares a data
+coordinate and splits the wide layers' output channels (params, Adam
+moments and EMA alike) between them, as the JAX package's flag does.
 """
 
 from __future__ import annotations
@@ -181,8 +184,11 @@ def add_mesh_arg(parser: argparse.ArgumentParser,
     if model_parallel:
         parser.add_argument(
             "--model_parallel", type=int, default=1,
-            help="with --mesh: the model axis (tensor parallelism); not "
-            "ported yet, values above 1 raise (ROADMAP.md §A.6b)")
+            help="with --mesh: split the mesh (world/N, N) and shard wide "
+            "trailing parameter dims (conv output channels, FFN widths) "
+            "over the model axis; params, optimizer moments and their "
+            "gradients then live sharded, each rank computing its slice of "
+            "the channels")
     parser.add_argument(
         "--force_cpu_devices", type=int, default=0,
         help="start N gloo ranks on the CPU, each running this driver with "
@@ -193,7 +199,9 @@ def mesh_from_args(args: argparse.Namespace,
                    device: torch.device) -> Optional[Mesh]:
     """The mesh ``--mesh`` asks for (None without it): joins the process
     group from torchrun's environment when it is not up yet. A device
-    without an index (``cuda``) means each rank's ``cuda:{LOCAL_RANK}``."""
+    without an index (``cuda``) means each rank's ``cuda:{LOCAL_RANK}``.
+    ``--model_parallel`` without ``--mesh``, or a model axis that does not
+    divide the world, raises."""
     mp = getattr(args, "model_parallel", 1)
     if not args.mesh:
         if mp > 1:
@@ -209,18 +217,24 @@ def mesh_from_args(args: argparse.Namespace,
 def mesh_training_placement(state, accum_steps: int = 1,
                             model_parallel: int = 1,
                             mesh: Optional[Mesh] = None):
-    """Place a train state and its batches for data-parallel training.
+    """Place a train state and its batches for mesh training.
 
-    Returns ``(state, place_batch)``: the state replicated over ``mesh``
-    (default: every rank of the process group on the data axis, each on
-    the state's device), and a function that takes a host or device
-    batch, every rank passing the same global batch, to this rank's rows
-    on the mesh's device (axis 1 when gradient accumulation stacks
-    microbatches in front, so each microbatch spreads over the ranks). The
-    train step itself is unchanged: it reads ``state.mesh``. Masked losses
-    stay exact under the batcher's padded remainder rows because their
-    denominators are global mask sums. ``model_parallel > 1`` raises
-    (ROADMAP.md §A.6b)."""
+    Returns ``(state, place_batch)``: the state placed on ``mesh`` (default:
+    a ``(world / model_parallel, model_parallel)`` mesh of the process
+    group's ranks, each on the state's device), and a function that takes
+    a host or device batch, every rank passing the same global batch, to
+    this rank's rows of the data axis on the mesh's device (axis 1 when
+    gradient accumulation stacks microbatches in front, so each
+    microbatch spreads over the data axis). The train step itself is
+    unchanged: it reads ``state.mesh``. Masked losses stay exact under the
+    batcher's padded remainder rows because their denominators are global
+    mask sums.
+
+    On a model axis wider than one rank the state is also tensor-sharded
+    (``TrainState.place_on``): every column-parallel layer the JAX rule
+    picks keeps its slice of the output channels, so its Adam moments and
+    EMA are slices too, and the ranks of a model group take the same
+    rows."""
     if mesh is None:
         device = (state.gen if hasattr(state, "gen") else state).generator
         mesh = build_mesh(MeshConfig(model_parallel=model_parallel),
@@ -232,8 +246,9 @@ def mesh_training_placement(state, accum_steps: int = 1,
         return {k: torch.as_tensor(local_rows(v, mesh, axis)).to(mesh.device)
                 for k, v in batch.items()}
 
-    logging.getLogger(__name__).info("mesh training on %s (data parallel)",
-                                     mesh.shape)
+    logging.getLogger(__name__).info(
+        "mesh training on %s (%s)", mesh.shape,
+        "data+tensor parallel" if mesh.model_size > 1 else "data parallel")
     return state, place_batch
 
 

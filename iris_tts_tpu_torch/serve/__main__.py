@@ -17,9 +17,15 @@ Usage:
     python -m iris_tts_tpu_torch.serve --aot outputs/aot --port 8080
     python -m iris_tts_tpu_torch.serve --pipeline outputs/exported --port 8080
     python -m iris_tts_tpu_torch.serve --random_weights --port 8080
+    torchrun --nproc_per_node 4 -m iris_tts_tpu_torch.serve --mesh \
+        --pipeline outputs/exported --port 8080
 
-Not here yet: data-parallel serving over several devices (the JAX
-package's ``--mesh``).
+``--mesh`` serves data-parallel over the processes of a
+``torch.distributed`` group (torchrun's environment, one process a
+device; ``TTSPipeline.use_mesh``, as the JAX package's ``--mesh``): world
+rank 0 runs the batcher and the HTTP server, and every other rank follows
+its device calls (``serve/mesh.py``). ``--backend gloo`` runs several ranks
+on one card (NCCL refuses that). ``--mesh`` with ``--aot`` is refused.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ import argparse
 import logging
 import time
 from pathlib import Path
+
+import torch.distributed as dist
 
 from iris_tts_tpu_torch.config import load_config
 from iris_tts_tpu_torch.models.pipeline import TTSPipeline
@@ -73,9 +81,28 @@ def main(argv=None) -> None:
                         help="--aot: capture every program before serving "
                         "(default: the smallest bucket, the rest in the "
                         "background)")
+    parser.add_argument("--mesh", action="store_true",
+                        help="data-parallel serving over the processes of "
+                        "the torch.distributed group (TTSPipeline.use_mesh): "
+                        "rank 0 serves, the other ranks follow its device "
+                        "calls")
+    parser.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                        help="--mesh: the process group's backend (default: "
+                        "nccl on the card, gloo on the CPU; gloo takes "
+                        "several ranks on one card)")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    if args.mesh and args.aot:
+        parser.error("--mesh applies to live pipelines, not --aot artifacts")
+    if args.mesh:
+        from iris_tts_tpu_torch.parallel.mesh import initialize_multihost
+
+        initialize_multihost(backend=args.backend, device=args.device)
+        if not dist.is_initialized():
+            parser.error("--mesh needs a process group: launch under "
+                         "torchrun (RANK, WORLD_SIZE, MASTER_ADDR, "
+                         "MASTER_PORT)")
 
     if args.aot:
         from iris_tts_tpu_torch.serve.export import AotPipeline
@@ -102,13 +129,37 @@ def main(argv=None) -> None:
     else:
         parser.error("need --aot DIR, --pipeline DIR or --random_weights")
     logger.info("pipeline on %s", pipe.device)
-    serve_forever(pipe, host=args.host, port=args.port,
-                  max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
-                  request_timeout_s=args.request_timeout_s,
-                  pcm16_transfer=not args.float_transfer,
-                  max_queue=args.max_queue,
-                  max_batch_limit=args.max_batch_limit)
+    leader = None
+    if args.mesh:
+        from iris_tts_tpu_torch.ops.mel_cuda import log_mel_cuda
+        from iris_tts_tpu_torch.parallel.mesh import is_primary
+        from iris_tts_tpu_torch.serve.mesh import MeshLeader, follow
+
+        pipe.use_mesh()
+        if not is_primary(pipe._mesh):
+            logger.info("mesh follower %d of %s: following rank 0",
+                        pipe._mesh.world_rank, pipe._mesh.shape)
+            logger.info("mesh follower: %d device calls, %d log-mel "
+                        "launches", follow(pipe), log_mel_cuda.launches)
+            return
+        pipe = leader = MeshLeader(pipe)
+    try:
+        serve_forever(pipe, host=args.host, port=args.port,
+                      max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+                      request_timeout_s=args.request_timeout_s,
+                      pcm16_transfer=not args.float_transfer,
+                      max_queue=args.max_queue,
+                      max_batch_limit=args.max_batch_limit)
+    finally:
+        if leader is not None:
+            leader.stop()
+            logger.info("mesh leader: %d device calls, %d log-mel launches",
+                        leader.calls, log_mel_cuda.launches)
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

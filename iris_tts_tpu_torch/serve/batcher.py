@@ -24,6 +24,9 @@ and warmup covers it.
 Seeded requests dispatch alone (never co-batched): a request's waveform
 must be reproducible from (text, seed), so it cannot depend on whatever
 traffic happened to share its batch.
+
+A pipeline with an ``idle()`` method (``serve/mesh.MeshLeader``) has it
+called on the device thread every 0.1 s the queue stays empty.
 """
 
 from __future__ import annotations
@@ -304,12 +307,15 @@ class DynamicBatcher:
         """Block for the first request, then take whatever else is queued
         (waiting up to max_wait for company if alone)."""
         items: List[BatchItem] = []
+        idle = getattr(self._pipe, "idle", None)  # serve --mesh's heartbeat
         while True:
             try:
                 first = self._queue.get(timeout=0.1)
             except queue.Empty:
                 if self._stopping.is_set():
                     return items
+                if idle is not None:
+                    idle()
                 continue
             if first is None:  # shutdown sentinel
                 return items

@@ -14,9 +14,11 @@ Each file is written to a temporary name and renamed into place, so a
 reader never sees a partial checkpoint. Saves are synchronous.
 
 Data parallelism: given the ``mesh`` of a replicated train state, every rank
-keeps the same bookkeeping but only rank 0 writes, and a save ends with a
-barrier, so the files are there for every rank when it returns. Every rank
-restores from the same files.
+keeps the same bookkeeping but only world rank 0 writes, and a save ends
+with a barrier, so the files are there for every rank when it returns.
+Every rank restores from the same files. On a model axis every rank takes
+the state's whole tensors (``TrainState.state_dict`` gathers the slices)
+and each restores its own slices from them.
 """
 
 from __future__ import annotations
@@ -36,6 +38,10 @@ from iris_tts_tpu_torch.config import (
     config_to_json,
 )
 from iris_tts_tpu_torch.parallel.mesh import barrier, is_primary
+from iris_tts_tpu_torch.parallel.sharding import (
+    full_state_dict,
+    load_full_state_dict,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -112,7 +118,8 @@ class CheckpointManager:
                 tmp = self._pinned_file.with_suffix(".tmp")
                 tmp.write_text(json.dumps(sorted(self._pinned)))
                 tmp.replace(self._pinned_file)
-        sd = state.state_dict() if self.writer else None
+        # every rank: a state sharded over a model axis gathers its slices
+        sd = state.state_dict()
         if self.writer:
             _atomic_save(sd, self._path(step))
             # Orbax's policy: the latest max_to_keep saves, plus pinned ones.
@@ -182,7 +189,7 @@ def save_params(path: str | Path, params: nn.Module | dict) -> None:
     """Save a module's state dict (or a state dict) to one file."""
     path = Path(path).absolute()
     path.parent.mkdir(parents=True, exist_ok=True)
-    sd = params.state_dict() if isinstance(params, nn.Module) else params
+    sd = full_state_dict(params) if isinstance(params, nn.Module) else params
     _atomic_save(sd, path)
 
 
@@ -191,5 +198,5 @@ def load_params(path: str | Path, template: Optional[nn.Module] = None):
     sd = _load(Path(path).absolute())
     if template is None:
         return sd
-    template.load_state_dict(sd, strict=True)
+    load_full_state_dict(template, sd)
     return template

@@ -153,7 +153,8 @@ class GANState:
         return self.gen.mesh
 
     def place_on(self, mesh) -> "GANState":
-        """Replicate both sides over ``mesh`` (``TrainState.place_on``)."""
+        """Place both sides on ``mesh`` (``TrainState.place_on``: replicated,
+        and sharded on a model axis)."""
         self.gen.place_on(mesh)
         self.disc.place_on(mesh)
         return self

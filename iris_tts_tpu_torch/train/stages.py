@@ -19,10 +19,11 @@ the backward pass (``train/steps.py``, ``train/gan.py``); the checkpoints
 hold f32 params either way.
 
 ``mesh`` (``parallel.build_mesh`` of the running processes) trains a stage
-data-parallel: the state is replicated from rank 0 (``TrainState.place_on``),
-each rank keeps its rows of every batch (the batch must divide over the
-data axis), rank 0 alone builds the mel cache and writes the checkpoints
-and metrics, and the other ranks wait for it where they read its files.
+over it: the state is replicated from world rank 0 and, on a model axis,
+sharded (``TrainState.place_on``), each rank keeps its data coordinate's
+rows of every batch (the batch must divide over the data axis), rank 0
+alone builds the mel cache and writes the checkpoints (whole tensors) and
+metrics, and the other ranks wait for it where they read its files.
 """
 
 from __future__ import annotations

@@ -65,7 +65,8 @@ def test_build_mesh_shapes_and_errors():
         build_mesh(MeshConfig(data_parallel=3), ["cpu"])
     with pytest.raises(ValueError, match="one device per rank"):
         build_mesh(MeshConfig(), ["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="§A.6b"):
+    # a model axis of two does not cover a lone process
+    with pytest.raises(ValueError, match="does not cover"):
         build_mesh(MeshConfig(model_parallel=2), ["cpu"])
 
 
@@ -98,7 +99,9 @@ def test_placement_on_a_one_rank_mesh():
     assert tp_param_sharding(lin, mesh) is lin
     for k, v in lin.state_dict().items():
         assert torch.equal(v, before[k])
-    with pytest.raises(NotImplementedError, match="§A.6b"):
+    # a model axis without a process group raises: no fallback to
+    # replication
+    with pytest.raises(ValueError, match="needs a process group"):
         tp_param_sharding(lin, Mesh({"data": 1, "model": 2},
                                     ("data", "model"), 0, CPU))
 
@@ -205,10 +208,14 @@ def test_mesh_training_needs_a_dividing_batch(tmp_path):
             "phoneme_ids"], view)
 
 
-def test_model_parallel_flag_raises():
+def test_model_parallel_flag_raises(monkeypatch):
+    """What still raises: ``--model_parallel`` without ``--mesh``, and a
+    model axis that does not cover the world (two in a lone process)."""
     import argparse
 
-    with pytest.raises(NotImplementedError, match="§A.6b"):
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match="does not cover"):
         mesh_from_args(argparse.Namespace(mesh=True, model_parallel=2), CPU)
     with pytest.raises(ValueError, match="needs --mesh"):
         mesh_from_args(argparse.Namespace(mesh=False, model_parallel=2), CPU)
