@@ -139,15 +139,37 @@ every kernel against its plain PyTorch version:
    follows) answers a burst of 8 seeded requests from 8 threads, each WAV
    within 1e-5 of the peak of a one-process ``TTSServer``'s on the same
    weights, with both p50s, and the follower's device calls equal rank
-   0's; rank 0 stops on SIGINT and both exit 0.
+   0's; rank 0 stops on SIGINT and both exit 0;
+12. G2P training, the checkpoint converters and native WAV IO: 12a the
+   shipped G2P checkpoint greedy-decodes the whole held-out split
+   (crc32 % 50 == 0) on the card in batches of 512, at most 0.1% of the
+   words apart from the host NumPy decoder, PER and exact match beside the
+   manifest's; 12b ``train_g2p.main`` at the default ``G2PConfig`` on the
+   whole dictionary, batch 512, two epochs into a temporary file (loss by
+   epoch falling, epoch seconds, a synchronized fixed-batch step, val PER,
+   peak memory; the checkpoint's keys and shapes are the shipped one's and
+   ``NeuralG2P`` decodes with it; the shipped file stays as it was); 12c
+   the oracle ``TorchGenerator`` at ``HiFiGANConfig()``, seeded, saved in
+   speechbrain nesting, through ``load_pretrained_hifigan`` on the card,
+   87 frames against the oracle's forward there (max-abs ≤ 1e-3), then
+   ``TTSPipeline.from_checkpoints`` over phase 10's trained stages with
+   ``hifigan_checkpoint=`` synthesizes a sentence; 12d ``demo_vocoder``
+   on the card (its one log-mel launch counted, the kernel held against
+   the plain version on its tone to 1e-4 of each frame's peak in linear
+   mel: most of a pure tone's bins sit near the log floor) and
+   ``hifigan_integration`` exits 0; 12e
+   the native WAV library builds from the port's ``wavio.cpp`` and
+   ``read_wav_batch`` of 32 clips equals the Python reader exactly, with
+   both times.
 
-Nine paths drive the kernel, or not: synthesis (phases 3 and 4),
+Ten paths drive the kernel, or not: synthesis (phases 3 and 4),
 training (phase 6), serving (phase 7), AOT serving (phase 8), bf16
 (phase 9's copy synthesis), the command line (phase 10), the data-axis
 mesh (phases 11a and 11b, counted in their rank processes), the model
-axis (11c, counted in its rank processes) and ``serve --mesh`` (11d,
-counted in its two rank processes, read from their logs); the serving
-paths and the model axis compute no log-mel: 0 launches. Each path's
+axis (11c, counted in its rank processes), ``serve --mesh`` (11d,
+counted in its two rank processes, read from their logs) and the demo
+vocoder (12d); the serving paths and the model axis compute no log-mel:
+0 launches. Each path's
 launch counts are zeroed just before it and read just after, and a
 kernel of the path that was not launched fails the run.
 The last three lines are the card's name and power limit, a
@@ -608,7 +630,7 @@ def phase6_training(dev, card: str):
         pipe = TTSPipeline.from_checkpoints(
             out / "encoder" / "checkpoints", out / "vae" / "checkpoints",
             out / "postnet" / "checkpoints",
-            out / "hifigan_gan" / "checkpoints",
+            hifigan_gan_checkpoint=out / "hifigan_gan" / "checkpoints",
             vocab_path=cache / "phoneme_vocab.json", device=dev)
         audio = pipe.synthesize(TRAIN_SENTENCE, seed=0)
         hop = pipe.config.hifigan.total_upsample
@@ -1661,8 +1683,10 @@ def phase9_bf16(dev, card: str, pipe, handoff) -> int:
 def phase10_cli(dev, card: str):
     """The command-line path on the card, through the drivers' ``main(argv)``
     in-process (see the module docstring). Returns the log-mel kernel's
-    launches on this path (one a cached clip, one a scored resynthesis) and
-    the held-out eval's summary."""
+    launches on this path (one a cached clip, one a scored resynthesis),
+    the held-out eval's summary, and the trained stages' directories (with
+    the temporary directory that holds them, which the caller cleans
+    up)."""
     import numpy as np
 
     from iris_tts_tpu_torch.data.audio_io import load_audio, read_wav
@@ -1836,11 +1860,307 @@ def phase10_cli(dev, card: str):
               f"resynthesis); every cached and resynthesis mel within "
               f"{worst:.3e} of the plain version (resynthesis MCD again "
               f"within {drift:.1e} dB)", flush=True)
-    finally:
+    except BaseException:
         tmp.cleanup()
+        raise
     print(f"phase 10 done in {time.perf_counter() - t_phase:.1f} s",
           flush=True)
-    return launches, summary
+    stage_dirs = {"encoder": out / "encoder" / "checkpoints",
+                  "vae": out / "vae" / "checkpoints",
+                  "postnet": out / "postnet" / "checkpoints",
+                  "vocab": cache / "phoneme_vocab.json", "tmp": tmp}
+    return launches, summary, stage_dirs
+
+
+# -- phase 12: G2P training, the checkpoint converters and native IO -----------
+
+G2P_DECODE_BATCH = 512
+G2P_DIFF_LIMIT = 1e-3  # share of held-out words the card may decode apart
+G2P_EPOCHS = 2
+NATIVE_CLIPS = 32
+
+
+def _median_step_ms(step, n: int = 20) -> float:
+    """Median of steps 4..n of ``step()``, each ended by a synchronize."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[3:])
+
+
+def _host_g2p_decode(checkpoint: str, chars, batch: int):
+    """The shipped G2P's host NumPy decode of ``chars`` (a child process
+    of phase 12: it runs beside the card's work) → (tokens, seconds)."""
+    import numpy as np
+
+    from iris_tts_tpu_torch.text.neural_g2p import _NumpyG2P, _read_checkpoint
+
+    t0 = time.perf_counter()
+    flat, cfg, _ = _read_checkpoint(checkpoint)
+    net = _NumpyG2P(flat, cfg)
+    toks = np.concatenate([net.greedy_decode(chars[i:i + batch])
+                           for i in range(0, len(chars), batch)])
+    return toks, time.perf_counter() - t0
+
+
+def phase12_g2p(dev, card: str, root: Path) -> None:
+    """12a: the shipped G2P decoded on the card against the host decoder
+    (which runs in a child process meanwhile); 12b: ``train_g2p`` at full
+    width on the whole dictionary."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    from iris_tts_tpu_torch.convert.from_jax import module_state_from_jax
+    from iris_tts_tpu_torch.models.g2p import G2PTransformer
+    from iris_tts_tpu_torch.scripts import train_g2p
+    from iris_tts_tpu_torch.text.neural_g2p import DEFAULT_CHECKPOINT, load_g2p
+
+    # 12a. the shipped checkpoint on the card, the held-out split; the host
+    # decoder's run (tens of seconds of NumPy) overlaps 12a and 12b
+    shipped_bytes = DEFAULT_CHECKPOINT.read_bytes()
+    params, cfg, meta = load_g2p(DEFAULT_CHECKPOINT)
+    chars, pin, pout, is_val = train_g2p.build_dataset(cfg)
+    chars_val, pout_val = chars[is_val], pout[is_val]
+    check(len(chars_val) > 2000, f"held-out split {len(chars_val)}")
+    with ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        host = pool.submit(_host_g2p_decode, str(DEFAULT_CHECKPOINT),
+                           chars_val, G2P_DECODE_BATCH)
+        model = G2PTransformer(cfg)
+        model.load_state_dict(module_state_from_jax(params["params"],
+                                                    module=model),
+                              strict=True)
+        model = model.to(dev).eval()
+        train_g2p.decode_tokens(model, chars_val[:G2P_DECODE_BATCH])  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_toks = train_g2p.decode_tokens(model, chars_val,
+                                            G2P_DECODE_BATCH)
+        card_s = time.perf_counter() - t0
+        per, exact = train_g2p.score_tokens(card_toks, pout_val)
+        print(f"phase 12a G2P shipped checkpoint on the card "
+              f"({cfg.embed_dim} wide, {cfg.enc_blocks}+{cfg.dec_blocks} "
+              f"blocks): {len(chars_val)} held-out words in batches of "
+              f"{G2P_DECODE_BATCH} in {card_s:.3f} s; PER {per:.4f}, exact "
+              f"{exact:.4f} (manifest, f32 before the fp16 save: "
+              f"{meta.get('val_per')} / {meta.get('val_exact')}) ({card})",
+              flush=True)
+        step = _phase12b_train(dev, card, root, cfg, chars, pin, pout,
+                               is_val, shipped_bytes)
+        host_toks, host_s = host.result()
+    # one fixed batch, the host to itself: the step alone, synchronized, as
+    # phase 6 times it
+    step_ms = _median_step_ms(step)
+    print(f"phase 12b one fixed batch of 512: {step_ms:.2f} ms a step "
+          f"(median of steps 4-20, synchronized) ({card})", flush=True)
+    profile_line("G2P train step (batch 512)", lambda: float(step()), card)
+    differ = float(np.mean(np.any(card_toks != host_toks, axis=1)))
+    check(differ <= G2P_DIFF_LIMIT,
+          f"G2P card vs host decoder: {differ:.4%} of words differ")
+    print(f"phase 12a G2P card vs host NumPy decoder: {differ:.4%} of "
+          f"{len(chars_val)} held-out words decode apart (limit "
+          f"{G2P_DIFF_LIMIT:.1%}); the host decode took {host_s:.3f} s in "
+          f"a child process beside 12b ({card})", flush=True)
+
+
+def _phase12b_train(dev, card: str, root: Path, cfg, chars, pin, pout,
+                    is_val, shipped_bytes: bytes):
+    """12b: ``train_g2p`` at full width, two epochs on the whole
+    dictionary, into a temporary file. Returns a fixed-batch step (a
+    callable) for timing once the host decoder's child process is done."""
+    import numpy as np
+
+    from iris_tts_tpu_torch.scripts import train_g2p
+    from iris_tts_tpu_torch.text.lexicon import ARPABET
+    from iris_tts_tpu_torch.text.neural_g2p import DEFAULT_CHECKPOINT, NeuralG2P
+
+    out = root / "g2p_trained.npz"
+    live_mb = torch.cuda.memory_allocated() / 2**20
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    summary = train_g2p.main(["--epochs", str(G2P_EPOCHS), "--batch_size",
+                              "512", "--eval_every", str(G2P_EPOCHS),
+                              "--output", str(out), "--device", str(dev)])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20 - live_mb
+    losses, epoch_s = summary["losses"], summary["epoch_s"]
+    check(all(math.isfinite(x) for x in losses), f"finite losses {losses}")
+    check(losses[-1] < losses[0], f"G2P loss falls by epoch: {losses}")
+    state, n = summary["state"], summary["steps_per_epoch"]
+    with np.load(out) as z, np.load(DEFAULT_CHECKPOINT) as ref:
+        shapes = {k: z[k].shape for k in z.files}
+        want = {k: ref[k].shape for k in ref.files}
+    check(shapes == want, "trained checkpoint's keys and shapes are the "
+          "shipped one's")
+    phones = NeuralG2P(out)("wug")
+    check(bool(phones) and all(p in ARPABET for p in phones),
+          f"NeuralG2P on the trained checkpoint: {phones}")
+    check(DEFAULT_CHECKPOINT.read_bytes() == shipped_bytes,
+          "the shipped checkpoint is untouched")
+    print(f"phase 12b train_g2p (G2PConfig(), {summary['train_entries']} "
+          f"entries, batch 512, {n} steps an epoch): loss by epoch "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + "; epoch s " + ", ".join(f"{x:.2f}" for x in epoch_s)
+          + f" ({1e3 * epoch_s[-1] / n:.2f} ms a step in the epoch, the "
+          f"host decoder's child process running beside it); val PER "
+          f"{summary['val_per']:.4f}, exact {summary['val_exact']:.4f}; "
+          f"{run_s:.1f} s in all with the eval and the save; peak "
+          f"{peak_mb:.1f} MiB over what was live before ({live_mb:.1f} "
+          f"MiB); NeuralG2P('wug') = {' '.join(phones)} ({card})",
+          flush=True)
+    c, yi, yo = (torch.from_numpy(a[~is_val][:512].astype(np.int64)).to(dev)
+                 for a in (chars, pin, pout))
+    return lambda: train_g2p.train_step(state, c, yi, yo)
+
+
+def phase12_converters(dev, card: str, root: Path, stage_dirs) -> int:
+    """12c: a torch HiFiGAN checkpoint through the converter on the card
+    against the oracle, and into ``from_checkpoints`` with phase 10's
+    stages; 12d: the demo vocoder (its log-mel launch counted) and the
+    integration check. Returns the demo's log-mel launches."""
+    import numpy as np
+
+    from iris_tts_tpu_torch.config import AudioConfig, HiFiGANConfig
+    from iris_tts_tpu_torch.convert.hifigan_torch import (
+        load_pretrained_hifigan,
+    )
+    from iris_tts_tpu_torch.convert.torch_oracle import TorchGenerator
+    from iris_tts_tpu_torch.models.pipeline import TTSPipeline
+    from iris_tts_tpu_torch.ops import mel_cuda
+    from iris_tts_tpu_torch.ops.stft import log_mel_spectrogram_plain
+    from iris_tts_tpu_torch.scripts import demo_vocoder, hifigan_integration
+
+    # 12c. the production generator, seeded, saved in speechbrain nesting
+    cfg = HiFiGANConfig()
+    torch.manual_seed(0)
+    oracle = TorchGenerator(cfg).eval()
+    path = root / "generator.ckpt"
+    torch.save({f"{k.rsplit('.', 1)[0]}.conv.{k.rsplit('.', 1)[1]}": v
+                for k, v in oracle.state_dict().items()}, path)
+    t0 = time.perf_counter()
+    vocoder = load_pretrained_hifigan(path, cfg, device=dev)
+    load_s = time.perf_counter() - t0
+    mel = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, 87, cfg.in_channels)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        want = oracle.to(dev)(mel.transpose(1, 2))[:, 0]
+    got = vocoder(mel[0].T)
+    torch.cuda.synchronize()
+    err, peak = max_abs(got, want[0]), float(want.abs().max())
+    check(err <= 1e-3, f"converted HiFiGAN vs oracle max-abs {err}")
+    pipe = TTSPipeline.from_checkpoints(
+        stage_dirs["encoder"], stage_dirs["vae"],
+        postnet_checkpoint=stage_dirs["postnet"], hifigan_checkpoint=path,
+        vocab_path=stage_dirs["vocab"], device=dev)
+    audio = pipe.synthesize(TRAIN_SENTENCE, seed=0)
+    check(len(audio) > 0 and bool(np.isfinite(audio).all())
+          and float(np.abs(audio).max()) > 0, "from_checkpoints with the "
+          "torch HiFiGAN synthesizes")
+    print(f"phase 12c torch HiFiGAN checkpoint (HiFiGANConfig(), seeded "
+          f"oracle, speechbrain nesting, {path.stat().st_size / 1e6:.1f} MB): "
+          f"load_pretrained_hifigan {load_s:.2f} s; vocoding 87 frames on "
+          f"the card vs the oracle there max-abs {err:.3e} (peak "
+          f"{peak:.3e}, {err / max(peak, 1e-30):.3e} of it; limit 1e-3); "
+          f"from_checkpoints(phase 10's stages, hifigan_checkpoint=) "
+          f"synthesized {len(audio)} samples ({card})", flush=True)
+
+    # 12d. the demo vocoder (one log-mel launch on its path) and the
+    # integration check
+    mel_cuda.log_mel_cuda.launches = 0
+    wav = demo_vocoder.main(["--output_wav", str(root / "demo.wav"),
+                             "--device", str(dev)])
+    launches = mel_cuda.log_mel_cuda.launches
+    check(launches == 1, f"demo vocoder log-mel launches {launches} == 1")
+    acfg = AudioConfig()
+    t = np.arange(acfg.sample_rate) / acfg.sample_rate
+    tone = torch.from_numpy((0.5 * np.sin(2 * np.pi * 220 * t) + 0.25 * np.sin(
+        2 * np.pi * 440 * t)).astype(np.float32)).to(dev)
+    got = mel_cuda.log_mel_cuda(tone, acfg)
+    want = log_mel_spectrogram_plain(tone, acfg)
+    demo_err = max_abs(got, want)
+    # A pure tone leaves most mel bins near the 1e-5 floor, where a float32
+    # rounding of the magnitude is a large step in log: held, as the mel
+    # cache is, in linear mel to 1e-4 of each frame's peak.
+    lin = (got.exp() - want.exp()).abs().amax(-1) / want.exp().amax(-1)
+    demo_lin = float(lin.max())
+    check(demo_lin <= 1e-4, f"demo log-mel vs plain {demo_lin} of a frame's "
+          f"peak in linear mel")
+    check(len(wav) == 87 * acfg.hop_length and bool(np.isfinite(wav).all()),
+          "demo waveform")
+    rc = hifigan_integration.main(["--device", str(dev)])
+    check(rc == 0, f"hifigan_integration exit {rc}")
+    print(f"phase 12d demo_vocoder on the card: {launches} log-mel launch, "
+          f"kernel vs plain on its tone max-abs {demo_err:.3e} in log, "
+          f"{demo_lin:.3e} of a frame's peak in linear mel (limit 1e-4); "
+          f"{len(wav)} samples written; hifigan_integration exit {rc}",
+          flush=True)
+    return launches
+
+
+def phase12_native(card: str, root: Path) -> None:
+    """12e: the native WAV library built from the port's source, its batch
+    read exact against the pure-Python reader."""
+    import numpy as np
+
+    from iris_tts_tpu_torch.data import audio_io, native
+
+    prebuilt = sorted(native.BUILD_DIR.glob("libiriswav_*.so"))
+    t0 = time.perf_counter()
+    lib = native.build_library()
+    build_s = time.perf_counter() - t0
+    check(native.native_available(), "native WAV library loads")
+    how = (f"found already built ({len(prebuilt)} in {native.BUILD_DIR})"
+           if lib in prebuilt else f"built with g++ in {build_s:.2f} s")
+    rng = np.random.default_rng(0)
+    paths = []
+    for i in range(NATIVE_CLIPS):
+        n = int(rng.integers(22050, 3 * 22050))
+        clip = (0.3 * rng.standard_normal(n)).clip(-1, 1).astype(np.float32)
+        p = root / f"clip_{i:02d}.wav"
+        audio_io.write_wav(p, clip, 22050,
+                           subtype="pcm16" if i % 2 else "float32")
+        paths.append(p)
+    max_samples = 3 * 22050
+
+    def python_batch():
+        out = np.zeros((len(paths), max_samples), np.float32)
+        for i, p in enumerate(paths):
+            mono = audio_io.to_mono(audio_io.read_wav(p)[0])
+            out[i, :len(mono)] = mono
+        return out
+
+    got, lengths, rates = native.read_wav_batch(paths, max_samples)
+    want = python_batch()
+    check(bool(np.array_equal(got, want)), "native batch read == Python")
+    check(bool((rates == 22050).all()), "native rates")
+    native_ms = time_host_ms(lambda: native.read_wav_batch(paths,
+                                                           max_samples))
+    python_ms = time_host_ms(python_batch)
+    print(f"phase 12e native WAV: {lib.name} from the port's wavio.cpp "
+          f"{how}; read_wav_batch of {NATIVE_CLIPS} clips "
+          f"(1-3 s, PCM16 and float32) equals the Python reader exactly; "
+          f"{native_ms:.2f} ms native (8 threads) vs {python_ms:.2f} ms "
+          f"Python (median of 5, host clock; {card})", flush=True)
+
+
+def phase12(dev, card: str, stage_dirs) -> int:
+    """Phase 12 (see the module docstring). Returns the demo vocoder's
+    log-mel launches."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p12_") as tmp:
+        root = Path(tmp)
+        phase12_g2p(dev, card, root)
+        launches = phase12_converters(dev, card, root, stage_dirs)
+        phase12_native(card, root)
+    print(f"phase 12 done in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
 
 
 # -- phase 11: multi-device on one card ----------------------------------------
@@ -2958,13 +3278,21 @@ def main() -> int:
     check(bf16_launches >= 1, "the bf16 path launched the log-mel kernel")
 
     # -- 10. the command-line drivers (the CLI path) --------------------------
-    cli_launches, cli_summary = phase10_cli(dev, card)
-    check(cli_launches >= 1, "the CLI path launched the log-mel kernel")
+    cli_launches, cli_summary, stage_dirs = phase10_cli(dev, card)
+    try:
+        check(cli_launches >= 1, "the CLI path launched the log-mel kernel")
 
-    # -- 11. multi-device on one card (the mesh path) -------------------------
-    mesh_launches, tp_launches, serve_mesh_launches = phase11_mesh(
-        dev, card, cli_summary)
-    check(mesh_launches >= 1, "the mesh path launched the log-mel kernel")
+        # -- 11. multi-device on one card (the mesh path) ---------------------
+        mesh_launches, tp_launches, serve_mesh_launches = phase11_mesh(
+            dev, card, cli_summary)
+        check(mesh_launches >= 1,
+              "the mesh path launched the log-mel kernel")
+
+        # -- 12. G2P training, the converters and native IO (the demo
+        # vocoder's path) ------------------------------------------------------
+        demo_launches = phase12(dev, card, stage_dirs)
+    finally:
+        stage_dirs["tmp"].cleanup()
 
     # -- where the time goes: one fused synthesize under the profiler --------
     profile_line("fused synthesize", lambda: pipe.synthesize(SENTENCE, seed=1),
@@ -2978,7 +3306,7 @@ def main() -> int:
         "replaces": f"{jax_pkg}/ops/mel_pallas.py:110",
         "launches": launches + train_launches + serve_launches
         + aot_launches + bf16_launches + cli_launches + mesh_launches
-        + tp_launches + serve_mesh_launches,
+        + tp_launches + serve_mesh_launches + demo_launches,
         "launches_by_path": {"synthesis": launches,
                              "training": train_launches,
                              "serving": serve_launches,
@@ -2987,7 +3315,8 @@ def main() -> int:
                              "cli": cli_launches,
                              "mesh": mesh_launches,
                              "model_axis": tp_launches,
-                             "serve_mesh": serve_mesh_launches},
+                             "serve_mesh": serve_mesh_launches,
+                             "vocoder_demo": demo_launches},
         "max_abs_err": worst,
         "ms": k_ms,
         "plain_ms": p_ms,

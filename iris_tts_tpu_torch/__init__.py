@@ -36,6 +36,10 @@ def __getattr__(name):
         from iris_tts_tpu_torch.text.frontend import create_text_processor
 
         return create_text_processor
+    if name in ("infer_hifigan", "get_pretrained_hifigan"):
+        from iris_tts_tpu_torch.convert import hifigan_torch
+
+        return getattr(hifigan_torch, name)
     if name in ("TTSServer", "DynamicBatcher", "serve_forever"):
         from iris_tts_tpu_torch import serve
 

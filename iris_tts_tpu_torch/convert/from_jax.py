@@ -24,6 +24,7 @@ flax leaf              where                            torch
 ``kernel`` [kh,kw,Ci,Co]  MPD Conv2d                    ``weight``
                                                         [Co,Ci,kh,kw]
 ``kernel`` [E,H,D]     attention query/key/value        [H·D, E]
+                       (any of ``ATTENTION_NAMES``)
 ``kernel`` [H,D,E]     attention out                    [E, H·D]
 ``bias`` [H, D]        attention query/key/value        [H·D]
 ``scale``              LayerNorm / BatchNorm            ``weight``
@@ -42,6 +43,9 @@ import torch
 import torch.nn as nn
 
 _QKV = ("query", "key", "value")
+# flax attention modules by name: the encoders' ``attention``, the G2P
+# decoder's ``self_attention`` and ``cross_attention``.
+ATTENTION_NAMES = ("attention", "self_attention", "cross_attention")
 
 
 def _leaves(tree: Any, path: Tuple[str, ...] = ()
@@ -58,7 +62,7 @@ def _convert_leaf(path: Tuple[str, ...], value: np.ndarray
     """(module path, flax leaf) → (torch key, torch-layout array)."""
     *mod, leaf = path
     parent = mod[-1] if mod else ""
-    in_attention = len(mod) >= 2 and mod[-2] == "attention"
+    in_attention = len(mod) >= 2 and mod[-2] in ATTENTION_NAMES
     a = np.asarray(value)
     if leaf == "kernel":
         name = "weight"

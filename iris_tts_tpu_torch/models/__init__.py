@@ -10,6 +10,8 @@ from iris_tts_tpu_torch.models.hifigan import (
     HiFiGANGenerator,
     HiFiGANVocoder,
     ResBlock,
+    TorchConv1d,
+    TorchConvTranspose1d,
     create_vocoder,
     iter_stream_windows,
     receptive_radius_frames,
@@ -38,6 +40,8 @@ __all__ = [
     "HiFiGANGenerator",
     "HiFiGANVocoder",
     "ResBlock",
+    "TorchConv1d",
+    "TorchConvTranspose1d",
     "create_vocoder",
     "iter_stream_windows",
     "receptive_radius_frames",

@@ -40,8 +40,9 @@ _LN_EPS = 1e-6
 
 
 class MultiHeadAttention(nn.Module):
-    """``flax.linen.MultiHeadDotProductAttention`` (self-attention, biases
-    on every projection). The flax kernels ``[E, H, D]`` / ``[H, D, E]``
+    """``flax.linen.MultiHeadDotProductAttention`` (biases on every
+    projection): self-attention, or attention over ``kv`` (the G2P
+    decoder's cross-attention). The flax kernels ``[E, H, D]`` / ``[H, D, E]``
     flatten to plain ``[E, E]`` Dense weights; on the model axis the query,
     key and value split ``D`` within each head, as JAX's rule splits their
     trailing dim, and the output projection splits ``E``."""
@@ -57,16 +58,20 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None,
                 dropout_rate: float = 0.0, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """x [B, P, E]; mask [B, 1, P, P] bool (True = attend). Dropout on
-        the attention weights shares one mask over batch and heads, as
-        flax's ``broadcast_dropout``."""
+                generator: Optional[torch.Generator] = None,
+                kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x [B, P, E] (the queries); kv [B, S, E] (keys and values; ``x``
+        when None); mask [B, 1, P, S] bool (True = attend). Dropout on the
+        attention weights shares one mask over batch and heads, as flax's
+        ``broadcast_dropout``."""
+        kv = x if kv is None else kv
         b, p, e = x.shape
+        s = kv.shape[1]
         h = self.num_heads
         d = e // h
         q = self.query(x).view(b, p, h, d) / math.sqrt(d)
-        k = self.key(x).view(b, p, h, d)
-        v = self.value(x).view(b, p, h, d)
+        k = self.key(kv).view(b, s, h, d)
+        v = self.value(kv).view(b, s, h, d)
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
         if mask is not None:
             # finfo.min, not -inf (as flax does): a fully padded query row

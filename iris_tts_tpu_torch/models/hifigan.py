@@ -46,11 +46,31 @@ from iris_tts_tpu_torch.runtime import (
 LRELU_SLOPE = 0.1
 
 
-def _torch_conv(cin: int, cout: int, k: int, dilation: int = 1) -> Conv1d:
-    """Conv with torch's explicit same-padding and normal(0.01) init."""
-    p = (k * dilation - dilation) // 2
-    return Conv1d(cin, cout, k, dilation=dilation, padding=(p, p),
-                  init="normal")
+class TorchConv1d(Conv1d):
+    """1-D convolution with torch's explicit same-padding ``(k·d − d) // 2``
+    on each side and HiFiGAN's normal(0.01) init; weight ``[C_out, C_in,
+    K]``, torch's own layout (the JAX module stores ``[K, C_in, C_out]``)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int, dilation: int = 1, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        p = (kernel_size * dilation - dilation) // 2
+        super().__init__(in_channels, out_channels, kernel_size,
+                         stride=stride, dilation=dilation, padding=(p, p),
+                         init="normal", dtype=dtype)
+
+
+class TorchConvTranspose1d(ConvTranspose1d):
+    """Transposed 1-D convolution as torch's ``ConvTranspose1d`` with
+    ``padding=(k − u) // 2``: ``T · u`` samples out when ``k − u`` is even
+    (the upsampler contract); normal(0.01) init; weight ``[C_in, C_out,
+    K]`` in true-convolution orientation, torch's own layout."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int, stride: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, out_channels, kernel_size, stride,
+                         init="normal", dtype=dtype)
 
 
 class ResBlock(nn.Module):
@@ -62,9 +82,9 @@ class ResBlock(nn.Module):
         self.n = len(dilations)
         for i, d in enumerate(dilations):
             self.add_module(f"convs1_{i}",
-                            _torch_conv(channels, channels, kernel_size, d))
+                            TorchConv1d(channels, channels, kernel_size, d))
             self.add_module(f"convs2_{i}",
-                            _torch_conv(channels, channels, kernel_size, 1))
+                            TorchConv1d(channels, channels, kernel_size, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.n):
@@ -89,17 +109,16 @@ class HiFiGANGenerator(nn.Module):
         self.num_kernels = len(cfg.resblock_kernel_sizes)
         self.num_ups = len(cfg.upsample_rates)
         c0 = cfg.upsample_initial_channel
-        self.conv_pre = _torch_conv(cfg.in_channels, c0, 7)
+        self.conv_pre = TorchConv1d(cfg.in_channels, c0, 7)
         for i, (u, k) in enumerate(zip(cfg.upsample_rates,
                                        cfg.upsample_kernel_sizes)):
             cin, ch = c0 // (2 ** i), c0 // (2 ** (i + 1))
-            self.add_module(f"ups_{i}",
-                            ConvTranspose1d(cin, ch, k, u, init="normal"))
+            self.add_module(f"ups_{i}", TorchConvTranspose1d(cin, ch, k, u))
             for j, (rk, rd) in enumerate(zip(cfg.resblock_kernel_sizes,
                                              cfg.resblock_dilations)):
                 self.add_module(f"resblocks_{i * self.num_kernels + j}",
                                 ResBlock(ch, rk, tuple(rd)))
-        self.conv_post = _torch_conv(c0 // (2 ** self.num_ups), 1, 7)
+        self.conv_post = TorchConv1d(c0 // (2 ** self.num_ups), 1, 7)
         set_dtype(self, dtype)
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:

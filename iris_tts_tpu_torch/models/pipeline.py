@@ -393,6 +393,7 @@ class TTSPipeline:
         encoder_checkpoint: Union[str, Path],
         vae_checkpoint: Union[str, Path],
         postnet_checkpoint: Optional[Union[str, Path]] = None,
+        hifigan_checkpoint: Optional[Union[str, Path]] = None,
         hifigan_gan_checkpoint: Optional[Union[str, Path]] = None,
         config: Optional[IrisConfig] = None,
         vocab: Optional[PhonemeVocab] = None,
@@ -407,14 +408,20 @@ class TTSPipeline:
         computing in ``dtype``.
 
         ``config`` defaults to the one recorded beside the VAE checkpoints.
-        ``hifigan_gan_checkpoint`` is the GAN stage's directory; its EMA
-        generator deploys when the run tracked one. A missing PostNet
-        serves the VAE output directly; a missing GAN checkpoint keeps the
-        generator's seeded random weights. The vocab must be the one the
-        encoder trained with (``vocab_path``: the stage's
-        ``phoneme_vocab.json``)."""
+        ``hifigan_checkpoint`` is a torch ``generator.ckpt`` run through
+        the weight converter (``convert/hifigan_torch.py``);
+        ``hifigan_gan_checkpoint`` is the GAN stage's directory, whose EMA
+        generator deploys when the run tracked one; passing both raises. A
+        missing PostNet serves the VAE output directly; with neither
+        vocoder checkpoint the generator keeps its seeded random weights.
+        The vocab must be the one the encoder trained with
+        (``vocab_path``: the stage's ``phoneme_vocab.json``)."""
         from iris_tts_tpu_torch.train.checkpoint import CheckpointManager
 
+        if hifigan_checkpoint is not None and hifigan_gan_checkpoint:
+            raise ValueError(
+                "pass either hifigan_checkpoint (torch) or "
+                "hifigan_gan_checkpoint (train_hifigan stage), not both")
         vae_dir = Path(vae_checkpoint)
         if config is None:
             config = CheckpointManager(vae_dir).load_config()
@@ -441,7 +448,16 @@ class TTSPipeline:
         if postnet_checkpoint is not None:
             sd.update({f"postnet.{k}": v for k, v in CheckpointManager(
                 postnet_checkpoint).restore_best_params().items()})
-        if hifigan_gan_checkpoint is not None:
+        if hifigan_checkpoint is not None:
+            from iris_tts_tpu_torch.convert.hifigan_torch import (
+                convert_hifigan_state_dict,
+                load_torch_checkpoint,
+            )
+
+            gen = convert_hifigan_state_dict(
+                load_torch_checkpoint(hifigan_checkpoint), config.hifigan)
+            sd.update({f"hifigan.{k}": v for k, v in gen.items()})
+        elif hifigan_gan_checkpoint is not None:
             gen = CheckpointManager(hifigan_gan_checkpoint
                                     ).restore_best_raw()["gen"]
             gen_params = gen["ema_params"] or gen["params"]

@@ -66,6 +66,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--vae_checkpoint", type=str,
                         default="outputs/vae/checkpoints")
     parser.add_argument("--postnet_checkpoint", type=str, default=None)
+    parser.add_argument("--hifigan_checkpoint", type=str, default=None,
+                        help="pretrained torch generator.ckpt")
     parser.add_argument("--lexicon_path", type=str, default=None)
     parser.add_argument("--write_wavs", action="store_true")
     parser.add_argument("--seed", type=int, default=1337)
@@ -147,6 +149,7 @@ def main(argv=None) -> Dict[str, float]:
         pipe = TTSPipeline.from_checkpoints(
             args.encoder_checkpoint, args.vae_checkpoint,
             postnet_checkpoint=args.postnet_checkpoint,
+            hifigan_checkpoint=args.hifigan_checkpoint,
             lexicon_path=args.lexicon_path, device=device)
 
     batch_size = args.batch_size

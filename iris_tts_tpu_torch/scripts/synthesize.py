@@ -3,9 +3,10 @@
 The pipeline comes from a deployable artifact (``--artifact``, written by
 ``TTSPipeline.save`` or ``train_full_pipeline``), from seeded random
 weights (``--random_weights``, a smoke test), or from the training stages'
-checkpoints (the port's own format). The waveform comes from the HiFiGAN
-generator, or from the Griffin-Lim vocoder (``--use_griffin_lim``, 60
-iterations on the pipeline's device).
+checkpoints (the port's own format), with a pretrained torch HiFiGAN
+(``--hifigan_checkpoint``) or the GAN stage's generator. The waveform comes
+from the HiFiGAN generator, or from the Griffin-Lim vocoder
+(``--use_griffin_lim``, 60 iterations on the pipeline's device).
 
 Usage:
     python -m iris_tts_tpu_torch.scripts.synthesize --text "Hello world." \
@@ -57,6 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--vae_checkpoint", type=str,
                         default="outputs/vae/checkpoints")
     parser.add_argument("--postnet_checkpoint", type=str, default=None)
+    parser.add_argument("--hifigan_checkpoint", type=str, default=None,
+                        help="pretrained torch generator.ckpt")
     parser.add_argument("--hifigan_gan_checkpoint", type=str, default=None,
                         help="the GAN stage's checkpoint dir "
                         "(outputs/hifigan_gan/checkpoints); deploys the EMA "
@@ -87,6 +90,7 @@ def build_pipeline(args, device: torch.device) -> TTSPipeline:
         args.encoder_checkpoint,
         args.vae_checkpoint,
         postnet_checkpoint=args.postnet_checkpoint,
+        hifigan_checkpoint=args.hifigan_checkpoint,
         hifigan_gan_checkpoint=args.hifigan_gan_checkpoint,
         config=load_config(args.config) if args.config else None,
         vocab_path=args.vocab_path,

@@ -39,6 +39,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="mel frames per training segment (32 → 8192 "
                         "samples, the HiFi-GAN paper's segment size)")
     parser.add_argument(
+        "--init_from_torch", type=str, default=None,
+        help="warm-start the generator from a torch generator.ckpt",
+    )
+    parser.add_argument(
         "--disc_width", type=float, default=1.0,
         help="discriminator channel scale (1.0 = paper sizes; smaller for "
         "smoke tests)",
@@ -80,7 +84,7 @@ def main(argv=None):
         periods=tuple(args.periods), num_scales=args.num_scales,
         accum_steps=args.accum_steps, ema_decay=args.ema_decay,
         compute_dtype=compute_dtype_of(args), remat=args.remat,
-        mesh=mesh)
+        mesh=mesh, init_from_torch=args.init_from_torch)
     return run_loop(loop, args.checkify)
 
 

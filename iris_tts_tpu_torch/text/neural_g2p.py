@@ -6,7 +6,8 @@ plus a ``__manifest__`` JSON) is read with ``np.load`` and decoded by a
 pure-NumPy forward pass (:class:`_NumpyG2P`). Importing this module, or
 constructing :class:`NeuralG2P`, loads nothing; the first out-of-lexicon
 word pays the one-time checkpoint load, and per-word results are memoized.
-Training the model is not part of this package.
+The training side is ``models/g2p.py`` and ``scripts/train_g2p.py``;
+:func:`save_g2p` writes the JAX package's checkpoint format.
 """
 
 from __future__ import annotations
@@ -63,6 +64,37 @@ class G2PConfig:
     dropout: float = 0.1
     max_word_len: int = 32   # characters
     max_phone_len: int = 36  # phonemes incl. BOS/EOS
+
+
+def _flatten(tree, prefix: str = ""):
+    """flax ``traverse_util.flatten_dict(tree, sep="/")`` as (key, leaf)
+    pairs, in the tree's order."""
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if hasattr(v, "items"):
+            yield from _flatten(v, key)
+        else:
+            yield key, v
+
+
+def save_g2p(path: str | Path, params, cfg, meta: Optional[dict] = None):
+    """Serialize params (fp16) + config + metadata into one npz, in the
+    JAX package's ``save_g2p`` format: ``params`` is the nested variables
+    tree (``{"params": {...}}``, numpy leaves; ``convert.to_jax``
+    lays a port module out so), flattened to ``/`` names, floats stored as
+    fp16 and other leaves as they are, beside a ``__manifest__`` JSON of
+    ``config`` and ``meta``."""
+    arrays = {}
+    for key, value in _flatten(params):
+        a = np.asarray(value)
+        arrays[key] = (a.astype(np.float16)
+                       if np.issubdtype(a.dtype, np.floating) else a)
+    manifest = {"config": vars(cfg) if not hasattr(cfg, "__dataclass_fields__")
+                else {f: getattr(cfg, f) for f in cfg.__dataclass_fields__},
+                "meta": meta or {}}
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, __manifest__=json.dumps(manifest), **arrays)
 
 
 def _read_checkpoint(path: str | Path):

@@ -2,9 +2,10 @@
 
 Counterpart of the JAX package's ``train/schedules.py``. Each learning-rate
 schedule is a plain function ``step → lr`` with optax's formulas
-(``warmup_cosine_decay_schedule``, ``linear_schedule``,
-``exponential_decay``, ``join_schedules``); the train state reads it at the
-update count *before* the update, as optax does.
+(``warmup_cosine_decay_schedule``, which the G2P trainer calls under that
+name, ``linear_schedule``, ``exponential_decay``, ``join_schedules``); the
+train state reads it at the update count *before* the update, as optax
+does.
 """
 
 from __future__ import annotations
@@ -17,6 +18,9 @@ Schedule = Callable[[int], float]
 
 def _linear(init_value: float, end_value: float,
             transition_steps: int) -> Schedule:
+    if transition_steps <= 0:  # optax: a constant init_value
+        return lambda step: init_value
+
     def schedule(step: int) -> float:
         count = min(max(step, 0), transition_steps)
         frac = 1.0 - count / transition_steps
@@ -36,6 +40,32 @@ def _join(schedules, boundaries) -> Schedule:
     return schedule
 
 
+def warmup_cosine_decay_schedule(
+    init_value: float,
+    peak_value: float,
+    warmup_steps: int,
+    decay_steps: int,
+    end_value: float = 0.0,
+) -> Schedule:
+    """``optax.warmup_cosine_decay_schedule``: linear from ``init_value``
+    to ``peak_value`` over ``warmup_steps`` (none when 0), then cosine
+    decay to ``end_value`` over the remaining ``decay_steps -
+    warmup_steps``, which must be positive."""
+    cos_steps = decay_steps - warmup_steps
+    if cos_steps <= 0:
+        raise ValueError("the cosine decay needs positive decay_steps "
+                         f"(got {decay_steps} with {warmup_steps} warmup)")
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+
+    def cosine(step: int) -> float:
+        count = min(step, cos_steps)
+        decay = 0.5 * (1.0 + math.cos(math.pi * count / cos_steps))
+        return peak_value * ((1.0 - alpha) * decay + alpha)
+
+    return _join([_linear(init_value, peak_value, warmup_steps), cosine],
+                 [warmup_steps])
+
+
 def warmup_cosine(
     base_lr: float,
     warmup_steps: int,
@@ -46,16 +76,9 @@ def warmup_cosine(
     ``final_scale * base_lr``."""
     warmup_steps = max(1, warmup_steps)
     decay_steps = max(1, total_steps - warmup_steps)
-    end_value = base_lr * final_scale
-    alpha = 0.0 if base_lr == 0.0 else end_value / base_lr
-
-    def cosine(step: int) -> float:
-        count = min(step, decay_steps)
-        decay = 0.5 * (1.0 + math.cos(math.pi * count / decay_steps))
-        return base_lr * ((1.0 - alpha) * decay + alpha)
-
-    return _join([_linear(base_lr / warmup_steps, base_lr, warmup_steps),
-                  cosine], [warmup_steps])
+    return warmup_cosine_decay_schedule(
+        base_lr / warmup_steps, base_lr, warmup_steps,
+        warmup_steps + decay_steps, base_lr * final_scale)
 
 
 def warmup_exponential(

@@ -350,12 +350,15 @@ def gan_stage(cfg: IrisConfig, data_root, alignment_dir, out_dir,
               periods: Sequence[int] = (2, 3, 5, 7, 11), num_scales: int = 3,
               accum_steps: int = 1, ema_decay: float = 0.0,
               compute_dtype: DtypeLike = None,
-              remat: bool = False, mesh=None) -> TrainLoop:
+              remat: bool = False, mesh=None,
+              init_from_torch=None) -> TrainLoop:
     """Stage 4: HiFiGAN adversarial training with MPD/MSD on random
     ``segment_frames``-frame segments (32 → 8192 samples), AdamW-style
     betas (0.8, 0.99) on both sides (``scripts/train_hifigan.py``).
     ``ema_decay`` (e.g. 0.999) tracks an EMA of the generator, which
-    ``from_checkpoints`` then serves."""
+    ``from_checkpoints`` then serves. ``init_from_torch``: a torch
+    ``generator.ckpt`` the generator starts from (a checkpoint of this
+    stage, when there is one, still resumes over it)."""
     device = resolve_device(device)
     pin_math_precision()
     out = Path(out_dir) / "hifigan_gan"
@@ -369,6 +372,14 @@ def gan_stage(cfg: IrisConfig, data_root, alignment_dir, out_dir,
                                   segment_frames, cfg.audio,
                                   seed=cfg.train.seed)
     gen = _init(HiFiGANGenerator(cfg.hifigan), cfg.train.seed, device)
+    if init_from_torch:
+        from iris_tts_tpu_torch.convert.hifigan_torch import (
+            convert_hifigan_state_dict,
+            load_torch_checkpoint,
+        )
+
+        gen.load_state_dict(convert_hifigan_state_dict(
+            load_torch_checkpoint(init_from_torch), cfg.hifigan))
     disc = _init(HiFiGANDiscriminators(tuple(periods), num_scales,
                                        disc_width),
                  cfg.train.seed + 1, device)

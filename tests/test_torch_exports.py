@@ -15,13 +15,7 @@ import torch
 import iris_tts_tpu
 
 # name → why the port does not export it (yet).
-NOT_YET = {
-    "models": {
-        "TorchConv1d": "ROADMAP §A.8: comes with the HiFiGAN converters; "
-                       "layers.Conv1d with explicit padding computes it",
-        "TorchConvTranspose1d": "ROADMAP §A.8, with the converters",
-    },
-}
+NOT_YET = {}
 # Subpackages the port does not have at all.
 NO_PACKAGE = {}
 

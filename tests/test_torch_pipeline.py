@@ -164,6 +164,12 @@ def test_port_imports_no_jax():
         "assert 'iris_tts_tpu_torch.text.neural_g2p' in mods, mods\n"
         "assert 'iris_tts_tpu_torch.scripts.train_full_pipeline' in mods, "
         "mods\n"
+        "new = ['models.g2p', 'convert.to_jax', 'convert.hifigan_torch', "
+        "'convert.keras_h5', 'convert.torch_oracle', 'data.native', "
+        "'scripts.train_g2p', 'scripts.import_keras_checkpoint', "
+        "'scripts.verify_reference_artifacts', "
+        "'scripts.hifigan_integration', 'scripts.demo_vocoder']\n"
+        "assert all('iris_tts_tpu_torch.' + m in mods for m in new), mods\n"
         "[importlib.import_module(m) for m in mods]\n"
         "runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
         # bf16 and remat run without JAX too: a tiny bf16 pipeline

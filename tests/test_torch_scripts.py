@@ -32,14 +32,17 @@ from iris_tts_tpu_torch.scripts import (
     average_checkpoints,
     batch_synthesize,
     common,
+    import_keras_checkpoint,
     make_synthetic_corpus,
     plot_training_curves,
     synthesize,
     train_encoder,
     train_full_pipeline,
+    train_g2p,
     train_hifigan,
     train_postnet,
     train_vae,
+    verify_reference_artifacts,
 )
 from iris_tts_tpu_torch.train.checkpoint import CheckpointManager, load_params
 from iris_tts_tpu_torch.train.state import TrainState, adam_clipped
@@ -59,16 +62,13 @@ DRIVERS = {
     "synthesize": synthesize,
     "batch_synthesize": batch_synthesize,
     "average_checkpoints": average_checkpoints,
+    "train_g2p": train_g2p,
+    "import_keras_checkpoint": import_keras_checkpoint,
+    "verify_reference_artifacts": verify_reference_artifacts,
 }
 # JAX flags the port does not accept yet, each with the ROADMAP item that
-# brings it.
-WAITING = {
-    "train_hifigan": {"--init_from_torch": "§A.8 (torch checkpoint "
-                                           "converter)"},
-    "synthesize": {"--hifigan_checkpoint": "§A.8 (torch checkpoint "
-                                           "converter)"},
-    "batch_synthesize": {"--hifigan_checkpoint": "§A.8"},
-}
+# brings it (none since the torch checkpoint converter landed).
+WAITING = {}
 # Flags the port has and the JAX script lacks. JAX runs a mesh of all the
 # devices one process sees and fakes N CPU devices with an XLA flag; the
 # port runs one process per device, so its mesh drivers take --mesh and
@@ -147,11 +147,17 @@ def test_driver_without_cuda_raises(name, monkeypatch, tmp_path):
                                  str(tmp_path / "p")],
         "average_checkpoints": ["--stage_dir", str(tmp_path / "s"),
                                 "--output", str(tmp_path / "o.pt")],
+        "train_g2p": ["--output", str(tmp_path / "g2p.npz")],
+        "import_keras_checkpoint": ["--output", str(tmp_path / "o")],
+        "verify_reference_artifacts": ["--parity_md",
+                                       str(tmp_path / "report.md")],
     }.get(name, ["--output_dir", str(tmp_path / "o")]
           if name != "synthesize" else ["--random_weights"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DRIVERS[name].main(argv)
     assert not (tmp_path / "c").exists() and not (tmp_path / "p").exists()
+    assert not (tmp_path / "g2p.npz").exists()
+    assert not (tmp_path / "report.md").exists()
 
 
 def test_make_synthetic_corpus_byte_identical_to_jax(tmp_path):

@@ -285,7 +285,8 @@ def test_four_stages_then_from_checkpoints_match_jax(tmp_path):
     vocab_path = tmp_path / "cache" / "phoneme_vocab.json"
     pipe = TTSPipeline.from_checkpoints(
         out / "encoder" / "checkpoints", out / "vae" / "checkpoints",
-        out / "postnet" / "checkpoints", out / "hifigan_gan" / "checkpoints",
+        out / "postnet" / "checkpoints",
+        hifigan_gan_checkpoint=out / "hifigan_gan" / "checkpoints",
         vocab_path=vocab_path, device="cpu")
     vae_sd = CheckpointManager(out / "vae" / "checkpoints"
                                ).restore_best_params()
