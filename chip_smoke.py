@@ -160,16 +160,36 @@ every kernel against its plain PyTorch version:
    ``hifigan_integration`` exits 0; 12e
    the native WAV library builds from the port's ``wavio.cpp`` and
    ``read_wav_batch`` of 32 clips equals the Python reader exactly, with
-   both times.
+   both times;
+13. the C++ serving host (``iris_tts_tpu_torch/serve/csrc/aoti_runner.cpp``)
+   at full width (phase 7's seeded, scaled weights, f32):
+   ``export_pipeline(native=True)`` on the card for batch 1 × phoneme
+   buckets (16, 32) (AOTInductor compile seconds a bucket; no TF32 in the
+   generated code) while g++ builds the host from the checkout
+   (``serve/native.build_host``; no libpython among its NEEDED entries),
+   both in a child process of this script (``--native-export DIR``)
+   started before phase 11, so that the compile overlaps phases 11 and 12;
+   the host's ``--probe``; then ``--artifact DIR --device cuda:0 --npy`` as
+   a child process over stdin: the JAX host's three requests
+   (``tests/test_pjrt_runner.py``) and a seeded burst of 16 text requests
+   whose durations lie clear of a rounding boundary; no error reply, WAVs
+   of 22 050 Hz with n_frames × 256 samples, routing 16 → 32, each reply's
+   ids the Python frontend's and its n_frames and deficit
+   ``ExportedSynthesizer``'s, each audio within 1e-5 of the peak of
+   ``ExportedSynthesizer`` on the same seed and temperature; boot to the
+   ready line, server-side and client-side request ms and the device
+   memory the host took, beside the same text requests through
+   ``AotPipeline``'s graph replay and ``ExportedSynthesizer``'s eager
+   programs on the same artifact, and phase 8's ``serve --aot`` child.
 
-Ten paths drive the kernel, or not: synthesis (phases 3 and 4),
+Eleven paths drive the kernel, or not: synthesis (phases 3 and 4),
 training (phase 6), serving (phase 7), AOT serving (phase 8), bf16
 (phase 9's copy synthesis), the command line (phase 10), the data-axis
 mesh (phases 11a and 11b, counted in their rank processes), the model
 axis (11c, counted in its rank processes), ``serve --mesh`` (11d,
-counted in its two rank processes, read from their logs) and the demo
-vocoder (12d); the serving paths and the model axis compute no log-mel:
-0 launches. Each path's
+counted in its two rank processes, read from their logs), the demo
+vocoder (12d) and the C++ host (13); the serving paths, the model axis
+and the C++ host compute no log-mel: 0 launches. Each path's
 launch counts are zeroed just before it and read just after, and a
 kernel of the path that was not launched fails the run.
 The last three lines are the card's name and power limit, a
@@ -1316,6 +1336,7 @@ def phase8_aot(dev, card: str, ref=None) -> int:
         lsb = int(np.abs(cli_pcm.astype(np.int32) - want_pcm).max())
         check(lsb <= 1, f"--aot server WAV vs AotPipeline.synthesize: {lsb} "
                         "LSB")
+        AOT_CHILD.update(boot_s=boot_s, req_ms=req_s * 1e3)
         print(f"phase 8 python -m iris_tts_tpu_torch.serve --aot: serving "
               f"{boot_s:.2f} s after the process started (load, first "
               f"capture); one request {req_s * 1e3:.2f} ms, its WAV vs "
@@ -2161,6 +2182,332 @@ def phase12(dev, card: str, stage_dirs) -> int:
     print(f"phase 12 done in {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return launches
+
+
+# -- phase 13: the C++ serving host ---------------------------------------------
+
+# The JAX host's own test requests (tests/test_pjrt_runner.py, artifact host
+# on device): (verb, name, seed, temperature, payload).
+NATIVE_JAX_REQUESTS = [
+    ("synth", "req1", 0, 1.0, "hello world"),
+    ("synth", "req2", 7, 0.8, "the quick brown fox jumps over the dog"),
+    ("ids", "req3", 0, 1.0, "4,9,12,9"),
+]
+NATIVE_BUCKETS = (16, 32)
+NATIVE_BURST = 16
+# Words of the burst's seeded sentences (all in the port's CMUdict).
+NATIVE_WORDS = ("the a small house stood near green water while two old "
+                "friends walked slowly home after dinner and talked about "
+                "music books travel rain summer morning light").split()
+# The host's audio against ExportedSynthesizer's, of the peak.
+NATIVE_LIMIT = 1e-5
+# Phase 8's `serve --aot` child, printed beside phase 13's host.
+AOT_CHILD: dict = {}
+# Seconds from the export child's start to its end, at most.
+NATIVE_EXPORT_DEADLINE_S = 900
+
+
+def _tf32_in_packages(files) -> list:
+    """Members of the AOTInductor packages whose generated code asks for
+    TF32 (``allow_tf32=True``, ``input_precision="tf32"``)."""
+    import re
+    import zipfile
+
+    pat = re.compile(rb"(?i)(allow_tf32\W{0,4}[=:]\W{0,4}true|"
+                     rb"input_precision\W{0,4}=\W{0,4}.tf32)")
+    hits = []
+    for f in files:
+        with zipfile.ZipFile(f) as z:
+            for name in z.namelist():
+                if name.endswith((".cpp", ".py", ".h", ".json", ".txt")) \
+                        and pat.search(z.read(name)):
+                    hits.append(f"{f.name}:{name}")
+    return hits
+
+
+def _min_half_distance(pipe, id_lists) -> float:
+    """The smallest distance of any predicted duration exp(p) − 1 to a .5
+    rounding boundary, over ``id_lists`` (one row each): two programs of
+    the same math may round a value that close differently."""
+    import numpy as np
+
+    from iris_tts_tpu_torch.ops.length import padding_mask
+
+    best = 1.0
+    with torch.no_grad():
+        for ids in id_lists:
+            t = torch.as_tensor(np.asarray(ids, np.int64), device=pipe.device)
+            ln = torch.tensor([len(ids)], device=pipe.device)
+            mask = padding_mask(ln, len(ids))
+            log_dur = pipe.model.duration(pipe.model.encoder(
+                t[None], padding_mask=mask))
+            x = torch.exp(log_dur.double()) - 1.0
+            best = min(best, float(((x - x.floor()) - 0.5).abs().min()))
+    return best
+
+
+def _native_requests(pipe, tp, vocab):
+    """JAX's three requests, then a seeded burst of NATIVE_BURST text
+    requests whose predicted durations lie clear of a rounding boundary
+    (drawn until 16 are)."""
+    import numpy as np
+
+    rng = np.random.default_rng(13)
+    reqs = list(NATIVE_JAX_REQUESTS)
+    while len(reqs) < len(NATIVE_JAX_REQUESTS) + NATIVE_BURST:
+        text = " ".join(rng.choice(NATIVE_WORDS, int(rng.integers(2, 7))))
+        ids = tp.text_to_ids(text, vocab)
+        if len(ids) <= NATIVE_BUCKETS[-1] and \
+                _min_half_distance(pipe, [ids]) > 1e-3:
+            reqs.append(("synth", f"burst{len(reqs):02d}",
+                         int(rng.integers(0, 2**31 - 1)),
+                         float(rng.choice([0.0, 0.667, 1.0])), text))
+    return reqs
+
+
+def native_export(root: Path, device: str = "cuda") -> int:
+    """Phase 13's export, run as a child process of this script
+    (``--native-export DIR``) beside phases 11 and 12: phase 7's weights
+    exported as batch 1 × ``NATIVE_BUCKETS`` with AOTInductor packages
+    into ``DIR/artifact`` while g++ builds the host; ``DIR/export.json``
+    records the seconds and the host's path."""
+    import threading
+
+    from iris_tts_tpu_torch.serve import native
+    from iris_tts_tpu_torch.serve.export import export_pipeline
+
+    os.environ["TORCHINDUCTOR_CACHE_DIR"] = str(root / "inductor")
+    pipe = _serving_pipeline(torch.device(device), "phase 13 export")
+    built = {}
+
+    def build():
+        t0 = time.perf_counter()
+        try:
+            built["host"] = str(native.build_host())
+        except Exception as e:  # noqa: BLE001 — raised below
+            built["error"] = e
+        built["build_s"] = time.perf_counter() - t0
+
+    build_thread = threading.Thread(target=build)
+    build_thread.start()  # g++ runs while AOTInductor compiles
+    t0 = time.perf_counter()
+    export_pipeline(pipe, root / "artifact", batch_sizes=(1,),
+                    phoneme_buckets=NATIVE_BUCKETS, native=True)
+    export_s = time.perf_counter() - t0
+    build_thread.join()
+    if "error" in built:
+        raise built["error"]
+    (root / "export.json").write_text(json.dumps(
+        {"export_s": export_s, **built}))
+    return 0
+
+
+def start_native_export():
+    """Start :func:`native_export` in a child process → (its directory,
+    the process, its log, the start time)."""
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_p13_")
+    log = open(Path(tmp.name) / "export.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--native-export",
+         tmp.name], stdout=log, stderr=subprocess.STDOUT,
+        cwd=Path(__file__).resolve().parent)
+    return tmp, proc, log, time.perf_counter()
+
+
+def stop_native_export(job) -> None:
+    """Kill the export child if it still runs and remove its directory
+    (a second call does nothing)."""
+    tmp, proc, log, _ = job
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    log.close()
+    tmp.cleanup()
+
+
+def phase13_native(dev, card: str, job=None) -> int:
+    """13: the C++ host (``serve/csrc/aoti_runner.cpp``) serving text at
+    full width from AOTInductor packages (see the module docstring).
+    ``job`` is the export child :func:`start_native_export` started before
+    phase 11 (None: start it now and wait for it). Returns the log-mel
+    kernel's launches on this path."""
+    import threading
+    import wave
+
+    import numpy as np
+
+    from iris_tts_tpu_torch.ops import mel_cuda
+    from iris_tts_tpu_torch.serve.export import (
+        AotPipeline,
+        ExportedSynthesizer,
+    )
+    from iris_tts_tpu_torch.text.frontend import create_text_processor
+
+    t_phase = time.perf_counter()
+    mel_cuda.log_mel_cuda.launches = 0
+    job = job or start_native_export()
+    tmp, export_proc, _, t_started = job
+    proc = None
+    try:
+        pipe = _serving_pipeline(dev, "phase 13")
+        tp = create_text_processor(use_g2p=False)
+        lexicon = (Path(__file__).resolve().parent / "iris_tts_tpu_torch"
+                   / "text" / "data" / "cmu_dict.txt")
+        root = Path(tmp.name)
+        t0 = time.perf_counter()
+        left = NATIVE_EXPORT_DEADLINE_S - (t0 - t_started)
+        try:
+            rc = export_proc.wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            rc = None
+        waited_s = time.perf_counter() - t0
+        check(rc == 0, f"the export child's exit code {rc}: "
+              + (root / "export.log").read_text()[-3000:])
+        info = json.loads((root / "export.json").read_text())
+        host, art = Path(info["host"]), root / "artifact"
+        manifest = json.loads((art / "manifest.json").read_text())
+        compile_s = {e["native_file"]: e["native_compile_s"]
+                     for e in manifest["entries"]}
+        tf32 = _tf32_in_packages([art / f for f in compile_s])
+        check(not tf32, f"no TF32 in the compiled packages: {tf32}")
+        print(f"phase 13 export --native (a child process started before "
+              f"phase 11): {len(compile_s)} buckets (batch 1 x phoneme "
+              f"{NATIVE_BUCKETS}) in {info['export_s']:.1f} s, of which "
+              f"this phase waited {waited_s:.1f} s; AOTInductor compile s "
+              f"per bucket "
+              + ", ".join(f"{k} {v:.1f}" for k, v in compile_s.items())
+              + "; package MB "
+              + ", ".join(f"{e['native_file']} {e['native_bytes'] / 1e6:.1f}"
+                          for e in manifest["entries"])
+              + f"; host {host.name} built with g++ in "
+              f"{info['build_s']:.1f} s (beside the compile) ({card})",
+              flush=True)
+        probe = subprocess.run([str(host), "--probe"], capture_output=True,
+                               text=True, timeout=120)
+        check(probe.returncode == 0, f"host --probe: {probe.stderr[-500:]}")
+        needed = [ln for ln in subprocess.run(
+            ["readelf", "-d", str(host)], capture_output=True,
+            text=True).stdout.splitlines() if "(NEEDED)" in ln]
+        check(bool(needed) and not any("libpython" in ln for ln in needed),
+              f"the host links no libpython: {needed}")
+        print(f"phase 13 host --probe: {probe.stdout.strip()}", flush=True)
+
+        reqs = _native_requests(pipe, tp, pipe.vocab)
+        torch.cuda.synchronize()
+        free_before = torch.cuda.mem_get_info()[0]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [str(host), "--artifact", str(art), "--lexicon", str(lexicon),
+             "--device", "cuda:0" if dev.type == "cuda" else "cpu", "--npy"],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, bufsize=1)
+        log = []
+        threading.Thread(target=lambda: log.extend(iter(
+            proc.stderr.readline, "")), daemon=True).start()
+        ready = json.loads(proc.stdout.readline() or "{}")
+        boot_s = time.perf_counter() - t0
+        check(ready.get("ready") is True,
+              f"host ready line {ready}: " + "".join(log)[-2000:])
+        check(ready["buckets"] == [[1, p] for p in NATIVE_BUCKETS],
+              f"host buckets {ready['buckets']}")
+        replies, client_ms, used = [], [], 0
+        for verb, name, seed, temp, payload in reqs:
+            t1 = time.perf_counter()
+            proc.stdin.write(f"{verb}\t{root / name}\t{seed}\t{temp}\t"
+                             f"{payload}\n")
+            proc.stdin.flush()
+            line = proc.stdout.readline()
+            client_ms.append((time.perf_counter() - t1) * 1e3)
+            check(bool(line), "host reply: " + "".join(log)[-2000:])
+            replies.append(json.loads(line))
+            used = max(used, free_before - torch.cuda.mem_get_info()[0])
+        proc.stdin.close()
+        rc = proc.wait(timeout=120)
+        check(rc == 0, f"host exit code {rc}: " + "".join(log)[-2000:])
+
+        # the Python reference on the same artifact and card
+        ref = ExportedSynthesizer(art, text_processor=tp, device=dev)
+        errs, frames, eager_ms = [], [], []
+        for (verb, name, seed, temp, payload), rep in zip(reqs, replies):
+            check("error" not in rep, f"{name}: {rep}")
+            ids = ([int(i) for i in payload.split(",")] if verb == "ids"
+                   else tp.text_to_ids(payload, ref.vocab).tolist())
+            check(rep["ids"] == ids, f"{name}: host ids = Python frontend's")
+            t1 = time.perf_counter()
+            want, _, n, deficit = ref._synthesize_ids(np.asarray(ids), seed,
+                                                       temp)
+            eager_ms.append((time.perf_counter() - t1) * 1e3)
+            check((rep["n_frames"], rep["deficit"]) == (n, deficit),
+                  f"{name}: n_frames/deficit {rep['n_frames']}/"
+                  f"{rep['deficit']} vs Python {n}/{deficit}")
+            got = np.load(root / f"{name}_audio.npy")
+            with wave.open(str(root / f"{name}.wav")) as w:
+                check(w.getframerate() == 22050, f"{name}: 22050 Hz WAV")
+                check(w.getnframes() == rep["n_frames"] * 256,
+                      f"{name}: WAV has n_frames x 256 samples")
+            peak = float(np.abs(want).max())
+            check(got.shape == want.shape and peak > 0, f"{name}: shape")
+            errs.append(float(np.abs(got.astype(np.float64) - want).max())
+                        / peak)
+            frames.append(n)
+        check(max(errs) <= NATIVE_LIMIT,
+              f"host vs ExportedSynthesizer {max(errs):.3e} <= "
+              f"{NATIVE_LIMIT} of the peak")
+        check(replies[0]["bucket"] == [1, 16] and replies[1]["bucket"]
+              == [1, 32], "routing 16 -> 32")
+        # the same text requests through Python's graph replay of the same
+        # buckets' programs (AotPipeline), for the host's latency
+        aot = AotPipeline(art, text_processor=tp, device=dev)
+        aot.warmup()
+        replay_ms = []
+        for verb, name, seed, temp, payload in reqs:
+            if verb == "synth":
+                t1 = time.perf_counter()
+                aot.synthesize(payload, seed=seed, temperature=temp)
+                replay_ms.append((time.perf_counter() - t1) * 1e3)
+        del aot, ref
+        torch.cuda.empty_cache()
+        server = [r["total_ms"] for r in replies]
+        run = [r["run_ms"] for r in replies]
+        print(f"phase 13 host over stdin: ready {boot_s:.2f} s after the "
+              f"process started (cold_start_ms {ready['cold_start_ms']:.1f}: "
+              f"loading {len(compile_s)} packages {ready['load_ms']:.1f} ms, "
+              f"their first runs {ready['first_run_ms']:.1f} ms); "
+              f"{len(replies)} requests (JAX's three, then a seeded burst "
+              f"of {NATIVE_BURST}), frames {frames}; server-side total ms "
+              f"p50 {_pct(server, 0.5):.2f} max {max(server):.2f} (run "
+              f"p50 {_pct(run, 0.5):.2f}, upload p50 "
+              f"{_pct([r['upload_ms'] for r in replies], 0.5):.3f}, fetch "
+              f"p50 {_pct([r['fetch_ms'] for r in replies], 0.5):.3f}); "
+              f"client-side ms p50 {_pct(client_ms, 0.5):.2f} max "
+              f"{max(client_ms):.2f}; device memory the host took "
+              f"{used / 2**20:.1f} MiB (free-memory drop over its run); "
+              f"every audio vs ExportedSynthesizer <= {max(errs):.3e} of "
+              f"the peak, ids, n_frames and deficit exact ({card})",
+              flush=True)
+        print(f"phase 13 the same requests in Python on the same artifact "
+              f"(host clock, text in, host audio out): AotPipeline graph "
+              f"replay p50 {_pct(replay_ms, 0.5):.2f} max "
+              f"{max(replay_ms):.2f} ms ({len(replay_ms)} synth requests); "
+              f"ExportedSynthesizer's eager program p50 "
+              f"{_pct(eager_ms, 0.5):.2f} max {max(eager_ms):.2f} ms; the "
+              f"host, client-side, p50 {_pct(client_ms, 0.5):.2f} ms "
+              f"({card})", flush=True)
+        if AOT_CHILD:
+            print(f"phase 13 vs phase 8's serve --aot child (same run): "
+                  f"ready {boot_s:.2f} vs {AOT_CHILD['boot_s']:.2f} s (the "
+                  f"child serves once its first graph is captured); a "
+                  f"request {_pct(client_ms, 0.5):.2f} ms (client p50, "
+                  f"stdin) vs the child's one and first HTTP request "
+                  f"{AOT_CHILD['req_ms']:.2f} ms ({card})", flush=True)
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        stop_native_export(job)
+    print(f"phase 13 done in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return mel_cuda.log_mel_cuda.launches
 
 
 # -- phase 11: multi-device on one card ----------------------------------------
@@ -3279,6 +3626,8 @@ def main() -> int:
 
     # -- 10. the command-line drivers (the CLI path) --------------------------
     cli_launches, cli_summary, stage_dirs = phase10_cli(dev, card)
+    # phase 13's AOTInductor compile runs in a child beside phases 11-12
+    native_job = start_native_export()
     try:
         check(cli_launches >= 1, "the CLI path launched the log-mel kernel")
 
@@ -3291,8 +3640,12 @@ def main() -> int:
         # -- 12. G2P training, the converters and native IO (the demo
         # vocoder's path) ------------------------------------------------------
         demo_launches = phase12(dev, card, stage_dirs)
+
+        # -- 13. the C++ serving host (the native host path) ------------------
+        native_launches = phase13_native(dev, card, native_job)
     finally:
         stage_dirs["tmp"].cleanup()
+        stop_native_export(native_job)
 
     # -- where the time goes: one fused synthesize under the profiler --------
     profile_line("fused synthesize", lambda: pipe.synthesize(SENTENCE, seed=1),
@@ -3306,7 +3659,8 @@ def main() -> int:
         "replaces": f"{jax_pkg}/ops/mel_pallas.py:110",
         "launches": launches + train_launches + serve_launches
         + aot_launches + bf16_launches + cli_launches + mesh_launches
-        + tp_launches + serve_mesh_launches + demo_launches,
+        + tp_launches + serve_mesh_launches + demo_launches
+        + native_launches,
         "launches_by_path": {"synthesis": launches,
                              "training": train_launches,
                              "serving": serve_launches,
@@ -3316,7 +3670,8 @@ def main() -> int:
                              "mesh": mesh_launches,
                              "model_axis": tp_launches,
                              "serve_mesh": serve_mesh_launches,
-                             "vocoder_demo": demo_launches},
+                             "vocoder_demo": demo_launches,
+                             "native_host": native_launches},
         "max_abs_err": worst,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -3337,4 +3692,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--mesh-rank":
         sys.exit(mesh_rank(sys.argv[2], Path(sys.argv[3])))
+    if len(sys.argv) == 3 and sys.argv[1] == "--native-export":
+        sys.exit(native_export(Path(sys.argv[2])))
     sys.exit(main())

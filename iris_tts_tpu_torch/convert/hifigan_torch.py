@@ -145,7 +145,7 @@ def load_pretrained_hifigan(
 
     sd = load_torch_checkpoint(checkpoint_path)
     params = convert_hifigan_state_dict(sd, config)
-    return HiFiGANVocoder(params, config, device, dtype)
+    return HiFiGANVocoder(params, config, dtype=dtype, device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -158,6 +158,9 @@ class HiFiGANDiscriminators(nn.Module):
                  num_scales: int = 3, width: float = 1.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.periods = tuple(periods)
+        self.num_scales = int(num_scales)
+        self.width = float(width)
         self.mpd = MultiPeriodDiscriminator(periods, width)
         self.msd = MultiScaleDiscriminator(num_scales, width)
         set_dtype(self, dtype)

@@ -212,7 +212,7 @@ class HiFiGANVocoder:
 
     def __init__(self, params: Dict[str, torch.Tensor],
                  config: HiFiGANConfig = HiFiGANConfig(),
-                 device: DeviceLike = None, dtype: DtypeLike = None):
+                 dtype: DtypeLike = None, device: DeviceLike = None):
         self.config = config
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(dtype)
@@ -242,10 +242,11 @@ class HiFiGANVocoder:
 
 
 def create_vocoder(config: HiFiGANConfig = HiFiGANConfig(), seed: int = 0,
-                   device: DeviceLike = None,
-                   dtype: DtypeLike = None) -> HiFiGANVocoder:
+                   dtype: DtypeLike = None,
+                   device: DeviceLike = None) -> HiFiGANVocoder:
     """A vocoder with seeded random weights (the flax-matching init drawn
     from a ``torch.Generator`` seeded with ``seed``)."""
     module = HiFiGANGenerator(config)
     init_params(module, seeded_generator(seed, "cpu"))
-    return HiFiGANVocoder(module.state_dict(), config, device, dtype)
+    return HiFiGANVocoder(module.state_dict(), config, dtype=dtype,
+                          device=device)

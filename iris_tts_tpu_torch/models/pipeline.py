@@ -345,13 +345,13 @@ class TTSPipeline:
     def initialize(
         cls,
         config: Optional[IrisConfig] = None,
-        seed: int = 1337,
-        device: DeviceLike = None,
         vocab: Optional[PhonemeVocab] = None,
         text_processor: Optional[TextProcessor] = None,
         lexicon_path: Optional[Union[str, Path]] = None,
+        seed: int = 1337,
         use_postnet: bool = True,
         dtype: DtypeLike = None,
+        device: DeviceLike = None,
     ) -> "TTSPipeline":
         """Seeded random-weight pipeline (flax-matching init distributions)
         on ``device`` (default: the CUDA device; raises without one),
@@ -399,9 +399,9 @@ class TTSPipeline:
         vocab: Optional[PhonemeVocab] = None,
         vocab_path: Optional[Union[str, Path]] = None,
         lexicon_path: Optional[Union[str, Path]] = None,
+        dtype: DtypeLike = None,
         device: DeviceLike = None,
         seed: int = 1337,
-        dtype: DtypeLike = None,
     ) -> "TTSPipeline":
         """Assemble the inference pipeline from the training stages' port
         checkpoints (``train/stages.py`` layout), best state first,
@@ -543,8 +543,8 @@ class TTSPipeline:
         cls,
         path: Union[str, Path],
         lexicon_path: Optional[Union[str, Path]] = None,
-        device: DeviceLike = None,
         dtype: DtypeLike = None,
+        device: DeviceLike = None,
     ) -> "TTSPipeline":
         """Load a directory written by :meth:`save` onto ``device``
         (default: the CUDA device; raises without one), computing in

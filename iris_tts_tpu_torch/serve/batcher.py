@@ -38,7 +38,7 @@ import threading
 import time
 from concurrent.futures import Future, InvalidStateError
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -79,6 +79,16 @@ class BatchItem:
     enqueued_at: float = field(default_factory=time.monotonic)
     # sentence chunks, precomputed on the frontend thread at submit()
     chunks: Optional[List[str]] = None
+
+
+@dataclass
+class _DeviceTask:
+    """Work handed to the device thread by another thread (``warmup()``):
+    the device thread runs ``fn`` between collects and resolves
+    ``future`` with its result."""
+
+    fn: Callable[[], Any]
+    future: "Future[Any]"
 
 
 class DynamicBatcher:
@@ -137,7 +147,8 @@ class DynamicBatcher:
         # racing admits can overshoot the limit and concurrent rejects lose
         # counter increments.
         self._admission_lock = threading.Lock()
-        self._queue: "queue.Queue[Optional[BatchItem]]" = queue.Queue()
+        self._queue: "queue.Queue[Union[BatchItem, _DeviceTask, None]]" = (
+            queue.Queue())
         self._thread: Optional[threading.Thread] = None
         self._started = False
         self._stopping = threading.Event()
@@ -225,19 +236,35 @@ class DynamicBatcher:
             )
         return chunks
 
+    def warmup(self) -> int:
+        """Run every shape live traffic can reach once, on the device
+        thread, and return the number of shapes run. :meth:`start` already
+        does this before it returns; call it again to re-warm a running
+        batcher. From any other thread the work is handed to the device
+        thread and this waits for it: PyTorch keeps cuDNN's per-shape
+        execution plans per thread, so shapes warmed elsewhere would still
+        be cold where requests run. Raises before :meth:`start` (there is
+        no device thread yet) and after :meth:`stop`."""
+        if threading.current_thread() is self._thread:
+            return self._warmup()
+        if not self._started:
+            raise RuntimeError(
+                "the batcher warms up on its device thread: call start(), "
+                "which runs the warmup there")
+        if self._stopping.is_set():
+            raise ServerStoppedError("batcher is stopped")
+        fut: "Future[int]" = Future()
+        self._queue.put(_DeviceTask(self._warmup, fut))
+        return fut.result()
+
     def _warmup(self) -> int:
-        """Run every shape live traffic can reach once. A live pipeline
+        """The warmup itself (:meth:`warmup`). A live pipeline
         runs every fused (phoneme, frame) bucket pair (the path single-row
         groups take), then every (batch, phoneme, frame) bucket of the
         two-stage path at this batcher's batch buckets, in the transfer
         format it dispatches. A pipeline without those (an ahead-of-time
         ``serve.export.AotPipeline``) runs its own ``warmup()``. Returns
-        the number of shapes run.
-
-        Private because it has to run on the device thread, which
-        :meth:`start` does: PyTorch keeps cuDNN's per-shape execution
-        plans per thread, so shapes warmed on another thread are still
-        cold on the device thread."""
+        the number of shapes run. Call it on the device thread only."""
         pipe = self._pipe
         if not hasattr(pipe, "warmup_fused"):
             return int(pipe.warmup() or 0)
@@ -258,7 +285,7 @@ class DynamicBatcher:
 
     def start(self) -> "DynamicBatcher":
         """Start the device thread. It first runs every serving shape once
-        (:meth:`_warmup`) and this returns once that is done (the count is
+        (:meth:`warmup`) and this returns once that is done (the count is
         in ``n_warmed``, the seconds in ``warmup_s``); a warmup failure is
         raised here and leaves the batcher stopped."""
         if self._started:
@@ -319,6 +346,9 @@ class DynamicBatcher:
                 continue
             if first is None:  # shutdown sentinel
                 return items
+            if isinstance(first, _DeviceTask):
+                self._run_task(first)
+                continue
             items.append(first)
             break
         deadline = time.monotonic() + self._max_wait_s
@@ -333,8 +363,18 @@ class DynamicBatcher:
             if nxt is None:
                 self._queue.put(None)  # keep the sentinel for the outer loop
                 break
+            if isinstance(nxt, _DeviceTask):
+                self._run_task(nxt)
+                continue
             items.append(nxt)
         return items
+
+    @staticmethod
+    def _run_task(task: _DeviceTask) -> None:
+        try:
+            task.future.set_result(task.fn())
+        except Exception as e:  # noqa: BLE001 — raised in the caller
+            task.future.set_exception(e)
 
     def _adapt_batch(self, n_rows: int) -> None:
         """Adaptive effective batch: a row-saturated collect with more work

@@ -20,11 +20,19 @@ Artifact layout (one directory):
     vocwin_c{C}_x{X}.pt2   optional streaming-vocoder window:
                            (mel [1, window, n_mels] f32, start [] int64) →
                            audio [1, C·hop] (dtype)
+    synth_b{B}_p{P}.aoti.pt2
+                           with ``native=True``: the same program compiled
+                           by AOTInductor, for the C++ serving host
+                           (``serve/csrc/aoti_runner.cpp``), which needs no
+                           Python; the JAX package writes the raw StableHLO
+                           beside each program for its native host
     vocab.json             phoneme → id table for the host frontend
     manifest.json          format version, shapes, ladders, device, and
                            the compute dtype ("dtype": the pipeline's,
                            baked into the programs, as the JAX package
-                           bakes ``pipe.dtype``)
+                           bakes ``pipe.dtype``); with ``native=True`` each
+                           entry's ``native_file`` and the torch version
+                           that compiled them (``native_torch``)
 
 The prior noise is an input: a ``torch.Generator`` cannot be one, and its
 draws depend on the shape drawn. The host side draws the live fused path's
@@ -53,8 +61,13 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import logging
+import os
+import shutil
+import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -171,12 +184,46 @@ class VocoderWindow(nn.Module):
 
 
 def _export(module: nn.Module, args: Tuple[torch.Tensor, ...],
-            file: Path) -> int:
+            file: Path):
     """Export ``module`` at ``args``'s shapes, save it to ``file``, return
-    its size in bytes."""
+    (the exported program, its size in bytes)."""
     ep = torch.export.export(module.eval(), args, strict=False)
     torch.export.save(ep, file)
-    return file.stat().st_size
+    return ep, file.stat().st_size
+
+
+@functools.lru_cache(maxsize=None)
+def _openmp_cxx() -> str:
+    """A C++ compiler that links ``-fopenmp``, which AOTInductor passes
+    when it builds a package on Linux: ``$CXX`` first, then ``g++`` and
+    ``c++`` on the PATH (a ``$CXX`` wrapper without OpenMP's spec file
+    cannot build one)."""
+    tried = []
+    for cxx in dict.fromkeys(filter(None, (os.environ.get("CXX"),
+                                          shutil.which("g++"),
+                                          shutil.which("c++")))):
+        with tempfile.TemporaryDirectory() as tmp:
+            src = Path(tmp) / "omp.cpp"
+            src.write_text("int main() { return 0; }\n")
+            r = subprocess.run([cxx, "-fopenmp", str(src), "-o",
+                                str(Path(tmp) / "omp")],
+                               capture_output=True, text=True, timeout=120)
+        if r.returncode == 0:
+            return cxx
+        tried.append(f"{cxx}: {r.stderr.strip()[-300:]}")
+    raise RuntimeError("AOTInductor needs a C++ compiler that links "
+                       "-fopenmp; none does: " + "; ".join(tried))
+
+
+def _compile_native(ep, package: Path) -> int:
+    """AOTInductor-compile the exported program ``ep`` into the package
+    ``package`` for the C++ host; return its size in bytes. The compile
+    runs with the port's numerics pinned (TF32 off), which the generated
+    code inherits."""
+    pin_math_precision()
+    with torch._inductor.config.patch({"cpp.cxx": (_openmp_cxx(),)}):
+        torch._inductor.aoti_compile_and_package(ep, package_path=str(package))
+    return package.stat().st_size
 
 
 def export_pipeline(
@@ -186,6 +233,7 @@ def export_pipeline(
     phoneme_buckets: Optional[Sequence[int]] = None,
     vocode_chunk_frames: Optional[int] = None,
     vocode_context_frames: Optional[int] = None,
+    native: bool = False,
 ) -> Path:
     """Export the pipeline's fused path per (B, P) bucket to ``path``.
 
@@ -202,6 +250,10 @@ def export_pipeline(
             program (:meth:`AotPipeline.vocode_streaming`);
             ``vocode_context_frames`` defaults to the generator's
             receptive-field radius.
+        native: also compile each synthesis program with AOTInductor
+            (``synth_b{B}_p{P}.aoti.pt2``, the C++ host's input; tens of
+            seconds a bucket). The vocoder window gets none: the host
+            does not serve it.
     Returns:
         the artifact directory.
     """
@@ -225,6 +277,8 @@ def export_pipeline(
         "dtype": dtype_name(pipe.dtype),
         "entries": [],
     }
+    if native:
+        manifest["native_torch"] = torch.__version__
     with _device_mode():
         for b in batch_sizes:
             for p in phoneme_buckets:
@@ -238,14 +292,23 @@ def export_pipeline(
                     torch.tensor(1.0, device=dev),
                 )
                 name = f"synth_b{b}_p{p}.pt2"
-                size = _export(FusedSynthesis(pipe.model, t, pipe.use_postnet,
-                                              pipe.upsample),
-                               args, path / name)
-                manifest["entries"].append({
-                    "file": name, "batch": b, "phoneme_bucket": p,
-                    "frame_bucket": t, "bytes": size,
-                })
+                ep, size = _export(FusedSynthesis(pipe.model, t,
+                                                  pipe.use_postnet,
+                                                  pipe.upsample),
+                                   args, path / name)
+                entry = {"file": name, "batch": b, "phoneme_bucket": p,
+                         "frame_bucket": t, "bytes": size}
                 logger.info("exported %s (T=%d, %d bytes)", name, t, size)
+                if native:
+                    t0 = time.perf_counter()
+                    entry["native_file"] = name.replace(".pt2", ".aoti.pt2")
+                    entry["native_bytes"] = _compile_native(
+                        ep, path / entry["native_file"])
+                    entry["native_compile_s"] = round(
+                        time.perf_counter() - t0, 3)
+                    logger.info("compiled %s (%.1f s)", entry["native_file"],
+                                entry["native_compile_s"])
+                manifest["entries"].append(entry)
 
         if vocode_chunk_frames:
             ctx = (vocode_context_frames if vocode_context_frames is not None
@@ -256,9 +319,9 @@ def export_pipeline(
                                 device=dev),
                     torch.tensor(0, dtype=torch.int64, device=dev))
             name = f"vocwin_c{chunk}_x{int(ctx)}.pt2"
-            size = _export(VocoderWindow(pipe.model.hifigan,
-                                         chunk * cfg.hifigan.total_upsample),
-                           args, path / name)
+            _, size = _export(VocoderWindow(
+                pipe.model.hifigan, chunk * cfg.hifigan.total_upsample),
+                args, path / name)
             manifest["vocode_window"] = {
                 "file": name, "chunk_frames": chunk,
                 "context_frames": int(ctx), "window_frames": window,
@@ -387,6 +450,12 @@ class ExportedSynthesizer:
     def synthesize(self, text: str, seed: int = 0,
                    temperature: float = 1.0) -> np.ndarray:
         ids = self.text_processor.text_to_ids(text, self.vocab)
+        return self._synthesize_ids(ids, seed, temperature)[0]
+
+    def _synthesize_ids(self, ids, seed: int, temperature: float):
+        """One row of ids → (trimmed audio, the bucket's mel [T, n_mels],
+        n_frames, deficit): the request path of :meth:`synthesize` after
+        the frontend (the C++ host's reference)."""
         b, p = _pick_bucket(self._progs, 1, len(ids))
         prog, entry = self._progs[(b, p)]
         with _device_mode():
@@ -396,10 +465,11 @@ class ExportedSynthesizer:
             bufs = _synth_buffers(entry, self.manifest, self.vocab.pad_id,
                                   self.device)
             _fill_synth_inputs(bufs, *host, temperature)
-            audio, _mel, n_frames, _deficit = prog(*bufs)
+            audio, mel, n_frames, deficit = prog(*bufs)
             n = int(n_frames[0])
             hop = int(self.manifest["samples_per_frame"])
-            return to_host(audio[0, :n * hop])
+            return (to_host(audio[0, :n * hop]), to_host(mel[0]), n,
+                    int(deficit[0]))
 
 
 class _Program:
@@ -734,6 +804,10 @@ def main(argv=None) -> None:
     parser.add_argument("--device", default=None,
                         help="torch device to export for, the one that will "
                         "serve (default: the CUDA device)")
+    parser.add_argument("--native", action="store_true",
+                        help="also compile each synthesis program with "
+                        "AOTInductor for the C++ serving host "
+                        "(iris_tts_tpu_torch/serve/csrc/aoti_runner.cpp)")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
@@ -747,7 +821,8 @@ def main(argv=None) -> None:
     out = export_pipeline(pipe, args.output, batch_sizes=args.batch_sizes,
                           phoneme_buckets=args.phoneme_buckets,
                           vocode_chunk_frames=args.vocode_chunk_frames,
-                          vocode_context_frames=args.vocode_context_frames)
+                          vocode_context_frames=args.vocode_context_frames,
+                          native=args.native)
     logger.info("wrote serving artifacts to %s", out)
 
 

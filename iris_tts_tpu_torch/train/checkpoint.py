@@ -11,7 +11,9 @@ config that trained the checkpoints is written beside them once and never
 overwritten.
 
 Each file is written to a temporary name and renamed into place, so a
-reader never sees a partial checkpoint. Saves are synchronous.
+reader never sees a partial checkpoint. Saves are synchronous, so the JAX
+package's ``wait=``, ``wait_until_finished()`` and ``close()`` are kept
+for its callers and have nothing to wait for.
 
 Data parallelism: given the ``mesh`` of a replicated train state, every rank
 keeps the same bookkeeping but only world rank 0 writes, and a save ends
@@ -97,20 +99,31 @@ class CheckpointManager:
     def _path(self, step: int) -> Path:
         return self.directory / f"step_{int(step):010d}.pt"
 
+    def _metrics_path(self, step: int) -> Path:
+        return self.directory / f"step_{int(step):010d}.metrics.json"
+
     # -- save ----------------------------------------------------------------
 
-    def save(self, step: int, state: Any,
-             val_metric: Optional[float] = None,
+    def save(self, step: int, state: Any, metrics: Optional[dict] = None,
+             val_metric: Optional[float] = None, wait: bool = False,
              epoch: Optional[int] = None) -> bool:
         """Save ``state`` at ``step``; track best-on-val separately. Returns
-        True if this is a new best. ``epoch`` (completed epochs) pins saves
-        at multiples of ``keep_every_n`` against eviction."""
+        True if this is a new best. ``metrics`` (scalars) are written
+        beside the checkpoint as ``step_*.metrics.json``. ``epoch``
+        (completed epochs) pins saves at multiples of ``keep_every_n``
+        against eviction. Saves are synchronous, so ``wait`` (the JAX
+        package's flag for its asynchronous saves) changes nothing: the
+        checkpoint is on disk when this returns."""
+        del wait
         try:
-            return self._save(step, state, val_metric, epoch)
+            return self._save(step, state, metrics, val_metric, epoch)
         finally:
             barrier(self.mesh)
 
-    def _save(self, step, state, val_metric, epoch) -> bool:
+    def wait_until_finished(self) -> None:
+        """Nothing to wait for: every save has committed when it returns."""
+
+    def _save(self, step, state, metrics, val_metric, epoch) -> bool:
         if (epoch is not None and self.keep_every_n
                 and epoch % self.keep_every_n == 0):
             self._pinned.add(int(step))
@@ -122,10 +135,14 @@ class CheckpointManager:
         sd = state.state_dict()
         if self.writer:
             _atomic_save(sd, self._path(step))
+            if metrics is not None:
+                self._metrics_path(step).write_text(json.dumps(
+                    {k: float(v) for k, v in metrics.items()}))
             # Orbax's policy: the latest max_to_keep saves, plus pinned ones.
             for s in self.all_steps()[: -self.max_to_keep or None]:
                 if s not in self._pinned:
                     self._path(s).unlink()
+                    self._metrics_path(s).unlink(missing_ok=True)
         if val_metric is None or not val_metric < self.best_metric:
             return False
         if self.writer:
@@ -167,9 +184,10 @@ class CheckpointManager:
         checkpoint, with no optimizer coupling."""
         return self.restore_best_raw()["params"]
 
-    def restore(self, state: Any, step: Optional[int] = None) -> Any:
-        """Restore into ``state`` (same structure) in place, bit-exact."""
-        return state.load_state_dict(self.restore_raw(step))
+    def restore(self, state_template: Any, step: Optional[int] = None) -> Any:
+        """Restore into ``state_template`` (same structure) in place,
+        bit-exact."""
+        return state_template.load_state_dict(self.restore_raw(step))
 
     def restore_best(self, state_template: Any) -> Any:
         """Restore the best checkpoint (the latest if none is marked best)
@@ -178,6 +196,9 @@ class CheckpointManager:
 
     def load_config(self) -> IrisConfig:
         return config_from_json((self.directory / "config.json").read_text())
+
+    def close(self) -> None:
+        """Nothing to release: saves are synchronous and hold no handle."""
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -91,12 +91,42 @@ def gen_loss(gen: nn.Module, disc: nn.Module, batch, cfg: IrisConfig):
                    "gen_total": total}
 
 
-def make_gan_steps(cfg: IrisConfig, accum_steps: int = 1,
-                   compute_dtype: DtypeLike = None, remat: bool = False):
+def _check_discriminators(disc: nn.Module, periods: Tuple[int, ...],
+                         num_scales: int, disc_width: float) -> None:
+    """Raise unless ``disc`` is the MPD/MSD that ``periods``,
+    ``num_scales`` and ``disc_width`` describe: the JAX steps build their
+    discriminators from these arguments, the port's steps train the module
+    they are given, so a mismatch would train another discriminator than
+    the caller asked for."""
+    want = (tuple(periods), int(num_scales), float(disc_width))
+    got = (getattr(disc, "periods", None), getattr(disc, "num_scales", None),
+           getattr(disc, "width", None))
+    if got != want:
+        raise ValueError(
+            f"disc_state holds discriminators with (periods, num_scales, "
+            f"disc_width) = {got}, but make_gan_steps was given {want}")
+
+
+def make_gan_steps(cfg: IrisConfig,
+                   periods: Tuple[int, ...] = (2, 3, 5, 7, 11),
+                   num_scales: int = 3, disc_width: float = 1.0,
+                   accum_steps: int = 1, compute_dtype: DtypeLike = None,
+                   remat: bool = False):
     """Returns (discriminator_step, generator_step), each
     ``(gen_state, disc_state, batch) → (its own new state, metrics)``;
-    alternate them per batch as in the paper. The discriminators' periods,
-    scales and width are those of the module in ``disc_state.params``."""
+    alternate them per batch as in the paper. ``periods`` / ``num_scales``
+    / ``disc_width`` describe the MPD/MSD (defaults per arXiv:2010.05646),
+    as in the JAX package; each step checks them against the
+    discriminators in ``disc_state.params`` and raises on a mismatch."""
+    return _gan_steps(cfg, accum_steps, compute_dtype, remat,
+                      (tuple(periods), num_scales, disc_width))
+
+
+def _gan_steps(cfg: IrisConfig, accum_steps: int, compute_dtype: DtypeLike,
+               remat: bool, disc_spec: Optional[tuple]):
+    """The two steps; ``disc_spec`` (periods, num_scales, disc_width) is
+    checked against ``disc_state.params`` at each step (None: train
+    whatever discriminators the state holds)."""
     dt = resolve_dtype(compute_dtype)
 
     def modes(gen_state, disc_state):
@@ -104,6 +134,8 @@ def make_gan_steps(cfg: IrisConfig, accum_steps: int = 1,
                          remat=remat)
 
     def disc_step(gen_state: TrainState, disc_state: TrainState, batch):
+        if disc_spec is not None:
+            _check_discriminators(disc_state.params, *disc_spec)
         with modes(gen_state, disc_state):
             metrics = _accumulated_grads(
                 lambda b: disc_loss(disc_state.params, gen_state.params, b),
@@ -111,6 +143,8 @@ def make_gan_steps(cfg: IrisConfig, accum_steps: int = 1,
         return disc_state.apply_gradients(), metrics
 
     def gen_step(gen_state: TrainState, disc_state: TrainState, batch):
+        if disc_spec is not None:
+            _check_discriminators(disc_state.params, *disc_spec)
         with modes(gen_state, disc_state), frozen_params(disc_state.params):
             metrics = _accumulated_grads(
                 lambda b: gen_loss(gen_state.params, disc_state.params, b,
@@ -176,9 +210,10 @@ def make_gan_train_step(cfg: IrisConfig, accum_steps: int = 1,
                         compute_dtype: DtypeLike = None, remat: bool = False):
     """One round on a :class:`GANState`: the discriminator step, then the
     generator step against the updated discriminator (the per-batch order
-    of the JAX stage script)."""
-    disc_step, gen_step = make_gan_steps(cfg, accum_steps, compute_dtype,
-                                         remat)
+    of the JAX stage script), training the discriminators the state
+    holds."""
+    disc_step, gen_step = _gan_steps(cfg, accum_steps, compute_dtype, remat,
+                                     None)
 
     def step(state: GANState, batch) -> Tuple[GANState, Dict]:
         _, dm = disc_step(state.gen, state.disc, batch)

@@ -54,35 +54,38 @@ class TrainLoop:
         train_step: ``(state, batch, *extras) → (state, metrics)``.
         batcher: object with ``epoch(i) → iterator of numpy batch dicts``.
         num_epochs: total epochs (absolute — resume continues the count).
-        device: where batches go (the device of the state's params).
         checkpoints: optional CheckpointManager (full-state saves).
         eval_step: optional ``(params[, frozen], batch, *extras) →
             metrics``.
         val_batcher: batcher for validation.
         epoch_extras: ``epoch → tuple`` of extra positional args for the
-            step and the eval step (e.g. the annealed KL weight).
+            step (e.g. the annealed KL weight).
+        eval_extras: same for eval (defaults to epoch_extras).
         val_metric_key: metric minimised for best-checkpoint tracking.
         place_batch: numpy training batch → device batch (e.g. with a
             microbatch split); runs on the prefetch thread. Default:
             :func:`~iris_tts_tpu_torch.data.batching.to_device`.
         prefetch: training batches staged ahead of the step (0 disables
             the prefetch thread).
+        handle_signals: run from the main thread, SIGTERM/SIGINT write a
+            full-state checkpoint and return cleanly. Resume granularity is
+            the epoch: the interrupted epoch re-runs from its start.
+        device: where batches go (default: the device of the state's
+            params).
 
-    Run from the main thread, SIGTERM/SIGINT write a full-state checkpoint
-    and return cleanly. Resume granularity is the epoch: the interrupted
-    epoch re-runs from its start.
+    The fields before ``device`` are the JAX package's, in its order.
     """
 
     state: Any
     train_step: Callable
     batcher: Any
     num_epochs: int
-    device: torch.device
     checkpoints: Optional[CheckpointManager] = None
     metrics: Optional[MetricsWriter] = None
     eval_step: Optional[Callable] = None
     val_batcher: Optional[Any] = None
     epoch_extras: Optional[Callable[[int], tuple]] = None
+    eval_extras: Optional[Callable[[int], tuple]] = None
     val_metric_key: str = "total"
     checkpoint_every: int = 5
     log_every_steps: int = 50
@@ -90,16 +93,22 @@ class TrainLoop:
     uses_frozen_in_eval: bool = True
     place_batch: Optional[Callable] = None
     prefetch: int = 2
-
+    handle_signals: bool = True
     history: list = field(default_factory=list)
+    device: Optional[torch.device] = None
     preempted: bool = field(default=False, init=False)
+
+    def __post_init__(self):
+        if self.device is None:
+            self.device = next(self.state.params.parameters()).device
 
     def run(self):
         global _PREEMPTED
         _PREEMPTED = False  # a past loop's preemption is not this one's
         stop = threading.Event()
         old_handlers = {}
-        if threading.current_thread() is threading.main_thread():
+        if self.handle_signals and (
+                threading.current_thread() is threading.main_thread()):
             def _on_signal(signum, frame):
                 logger.warning("received %s — will checkpoint and stop",
                                signal.Signals(signum).name)
@@ -183,14 +192,16 @@ class TrainLoop:
 
             val_means: Dict[str, float] = {}
             if self.eval_step and self.val_batcher is not None:
+                ev_extras = (self.eval_extras(epoch) if self.eval_extras
+                             else extras)
                 vm = RunningMean()
                 for batch in self.val_batcher.epoch(0):
                     batch = self._place(batch)
                     if self.uses_frozen_in_eval and state.frozen is not None:
                         m = self.eval_step(state.params, state.frozen, batch,
-                                           *extras)
+                                           *ev_extras)
                     else:
-                        m = self.eval_step(state.params, batch, *extras)
+                        m = self.eval_step(state.params, batch, *ev_extras)
                     vm.update({f"val_{k}": float(v) for k, v in m.items()})
                 val_means = vm.means()
 

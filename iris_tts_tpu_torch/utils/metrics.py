@@ -58,6 +58,10 @@ class RunningMean:
     def means(self) -> Dict[str, float]:
         return {k: self._sums[k] / self._counts[k] for k in self._sums}
 
+    def reset(self) -> None:
+        self._sums.clear()
+        self._counts.clear()
+
 
 # ---------------------------------------------------------------------------
 # Audio-quality metrics (host-side numpy: evaluation only)

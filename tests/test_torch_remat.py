@@ -177,7 +177,8 @@ def test_gan_remat_generator_matches_no_remat(compute_dtype):
     outs = {}
     for remat in (False, True):
         gs, ds = _gan_states()
-        d_step, g_step = make_gan_steps(GAN_CFG, compute_dtype=compute_dtype,
+        d_step, g_step = make_gan_steps(GAN_CFG, (2,), 1, 0.25,
+                                        compute_dtype=compute_dtype,
                                         remat=remat)
         ds, dm = d_step(gs, ds, _gan_batch())
         gs, gm = g_step(gs, ds, _gan_batch())

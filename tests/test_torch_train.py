@@ -689,7 +689,7 @@ def test_gan_steps_keep_their_sides_apart(gan_setup):
     tx = adam_clipped(1e-3, 1.0, b1=0.8, b2=0.99)
     gs = TrainState.create(gen, tx, 0)
     ds = TrainState.create(disc, tx, 1)
-    disc_step, gen_step = make_gan_steps(GAN_CFG)
+    disc_step, gen_step = make_gan_steps(GAN_CFG, disc_width=0.125)
     snap = lambda m: {k: v.clone() for k, v in m.state_dict().items()}  # noqa
     g0, d0 = snap(gen), snap(disc)
     ds, dm = disc_step(gs, ds, _t(batch))
