@@ -520,37 +520,62 @@ def test_http_streaming_standard_client_dechunks(server, pipeline):
     assert abs(len(pcm) - base) <= gap * 4
 
 
-def test_streaming_ttfa_is_one_chunk_not_whole_text(server, pipeline):
-    """Time to first audio of a multi-sentence stream is about one
-    sentence's latency, not the whole text's; /stats reports it."""
+# A held chunk waits this long for the client's first read, longer than the
+# client waits for that read: a stream that holds its first audio back fails
+# on the client's timeout instead of hanging.
+TTFA_CLIENT_WAIT_S = 60.0
+TTFA_HOLD_S = 120.0
+
+
+def test_streaming_ttfa_is_one_chunk_not_whole_text(server, pipeline,
+                                                    monkeypatch):
+    """Time to first audio of a multi-sentence stream is one chunk's
+    synthesis, not the whole text's: every chunk after the first is held
+    on the device thread until the client has read the first audio chunk,
+    so a stream that waited for the whole text could never deliver it (the
+    client's read times out). The order of events is checked, not the host
+    clock; /stats reports the TTFA."""
     long_text = " ".join([SENT] * 5)
     n_chunks = len(pipeline._chunk_long_text(long_text,
                                              pipeline.phoneme_buckets[-1]))
     assert n_chunks >= 4
-    host, port = server.address[:2]
-    _request(server, "POST", "/synthesize", {"text": long_text})
-    _request(server, "POST", "/synthesize", {"text": SENT})
-    t0 = time.monotonic()
-    status, _, _ = _request(server, "POST", "/synthesize", {"text": SENT})
-    single_s = time.monotonic() - t0
-    assert status == 200
+    seed = 9000  # chunk i of the stream synthesizes with seed + i
+    first_read = threading.Event()
+    held = []  # (later chunks' seeds in a dispatch, released by the read)
+    dispatch = server.batcher._dispatch
 
-    conn = http.client.HTTPConnection(host, port, timeout=300)
-    t0 = time.monotonic()
-    conn.request("POST", "/synthesize_stream",
-                 body=json.dumps({"text": long_text}),
-                 headers={"Content-Type": "application/json"})
-    resp = conn.getresponse()
-    size = int(resp.fp.readline().strip(), 16)
-    resp.fp.read(size)
-    ttfa_s = time.monotonic() - t0
-    resp.fp.readline()
-    rest = _read_chunked(resp)
-    total_s = time.monotonic() - t0
-    conn.close()
+    def hold_later_chunks(group):
+        later = [it.seed for it in group
+                 if it.seed is not None and it.seed > seed]
+        if later:
+            held.append((later, first_read.wait(TTFA_HOLD_S)))
+        dispatch(group)
+
+    monkeypatch.setattr(server.batcher, "_dispatch", hold_later_chunks)
+    host, port = server.address[:2]
+    conn = http.client.HTTPConnection(host, port, timeout=TTFA_CLIENT_WAIT_S)
+    try:
+        conn.request("POST", "/synthesize_stream",
+                     body=json.dumps({"text": long_text, "seed": seed}),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        assert resp.status == 200
+        size = int(resp.fp.readline().strip(), 16)
+        first = resp.fp.read(size)
+        resp.fp.readline()
+        # the first audio is here while no later chunk has been released
+        assert not held, held
+        first_read.set()
+        rest = _read_chunked(resp)
+    finally:
+        first_read.set()
+        conn.close()
+    assert len(first) > 0
     assert len(rest) == 2 * n_chunks - 2
-    assert ttfa_s < 0.6 * total_s, (ttfa_s, total_s)
-    assert ttfa_s < 3.0 * single_s + 0.5, (ttfa_s, single_s)
+    # every later chunk went through a held dispatch, released by the read
+    assert sorted(s for seeds, _ in held for s in seeds) == list(
+        range(seed + 1, seed + n_chunks))
+    assert all(released for _, released in held), held
     stats = server.batcher.stats()
     assert stats["ttfa_ms"]["p50"] is not None
     assert stats["ttfa_ms"]["p50"] <= stats["ttfa_ms"]["max"]
