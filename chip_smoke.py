@@ -180,16 +180,30 @@ every kernel against its plain PyTorch version:
    ready line, server-side and client-side request ms and the device
    memory the host took, beside the same text requests through
    ``AotPipeline``'s graph replay and ``ExportedSynthesizer``'s eager
-   programs on the same artifact, and phase 8's ``serve --aot`` child.
+   programs on the same artifact, and phase 8's ``serve --aot`` child;
+14. the diagnostics and pre-flight tools, in-process through their
+   ``main(argv)`` at full width on the card, over phase 10's corpus and
+   stage checkpoints: ``test_encoder_setup`` (the corpus, ``SETUP OK``),
+   ``test_vae_setup`` (shapes, zero-initialised logvar, ``generate()``,
+   flow invertibility), ``debug_vae_loss`` (the train step, its recompute
+   and the raw arithmetic agree), ``test_trained_encoder`` (duration MAE
+   / RMSE / correlation and the verdict), ``validate_vae_checkpoint``
+   (eval metrics, posterior-mean MCD/LSD, the verdict, the generation
+   smoke check), ``analyze_vae`` (per-utterance reconstruction, prior and
+   random-conditioning generations), ``test_synthesis`` (ground-truth
+   durations, MSE/MAE, quality, Griffin-Lim on the card, both wavs) and
+   ``example``; each tool that reads the validation mels gets a fresh
+   cache, so they go through the kernel: its launches counted exactly
+   and every cached mel within 2e-3 of the plain version.
 
-Eleven paths drive the kernel, or not: synthesis (phases 3 and 4),
+Twelve paths drive the kernel, or not: synthesis (phases 3 and 4),
 training (phase 6), serving (phase 7), AOT serving (phase 8), bf16
 (phase 9's copy synthesis), the command line (phase 10), the data-axis
 mesh (phases 11a and 11b, counted in their rank processes), the model
 axis (11c, counted in its rank processes), ``serve --mesh`` (11d,
 counted in its two rank processes, read from their logs), the demo
-vocoder (12d) and the C++ host (13); the serving paths, the model axis
-and the C++ host compute no log-mel: 0 launches. Each path's
+vocoder (12d), the C++ host (13) and the diagnostics (14); the serving
+paths, the model axis and the C++ host compute no log-mel: 0 launches. Each path's
 launch counts are zeroed just before it and read just after, and a
 kernel of the path that was not launched fails the run.
 The last three lines are the card's name and power limit, a
@@ -1889,7 +1903,9 @@ def phase10_cli(dev, card: str):
     stage_dirs = {"encoder": out / "encoder" / "checkpoints",
                   "vae": out / "vae" / "checkpoints",
                   "postnet": out / "postnet" / "checkpoints",
-                  "vocab": cache / "phoneme_vocab.json", "tmp": tmp}
+                  "vocab": cache / "phoneme_vocab.json", "tmp": tmp,
+                  "data_root": data_root, "aligned": aligned,
+                  "audio": audio_cfg}
     return launches, summary, stage_dirs
 
 
@@ -2508,6 +2524,187 @@ def phase13_native(dev, card: str, job=None) -> int:
     print(f"phase 13 done in {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return mel_cuda.log_mel_cuda.launches
+
+
+# -- phase 14: the diagnostics and pre-flight tools -----------------------------
+
+
+def phase14_diagnostics(dev, card: str, stage_dirs) -> int:
+    """The diagnostics path on the card (see the module docstring): tools
+    4-11 of ``iris_tts_tpu_torch.scripts`` in-process through their
+    ``main(argv)`` at full width, on phase 10's corpus and stage
+    checkpoints. Each tool that reads the validation mels gets a fresh
+    cache directory holding only the training vocab, so its mels go
+    through the log-mel kernel. Returns the kernel's launches on this
+    path, checked exactly."""
+    import shutil
+
+    import numpy as np
+
+    from iris_tts_tpu_torch.data.audio_io import load_audio, read_wav
+    from iris_tts_tpu_torch.data.ljspeech import LJSpeechDurationDataset
+    from iris_tts_tpu_torch.ops import mel_cuda
+    from iris_tts_tpu_torch.ops.stft import log_mel_spectrogram_plain
+    from iris_tts_tpu_torch.scripts import (
+        analyze_vae,
+        debug_vae_loss,
+        example,
+        test_encoder_setup,
+        test_synthesis,
+        test_trained_encoder,
+        test_vae_setup,
+        validate_vae_checkpoint,
+    )
+
+    t_phase = time.perf_counter()
+    root = Path(stage_dirs["tmp"].name) / "diagnostics"
+    root.mkdir()
+    corpus = ["--data_root", str(stage_dirs["data_root"]),
+              "--alignment_dir", str(stage_dirs["aligned"])]
+    stages = ["--encoder_checkpoint", str(stage_dirs["encoder"]),
+              "--vae_checkpoint", str(stage_dirs["vae"])]
+    mel_caches = []
+
+    def cache(name: str, mels: bool) -> list:
+        """A fresh cache directory with the training vocab in it."""
+        d = root / f"cache_{name}"
+        d.mkdir()
+        shutil.copy(stage_dirs["vocab"], d / "phoneme_vocab.json")
+        if mels:
+            mel_caches.append(d / "mels")
+        return ["--cache_dir", str(d)]
+
+    times = {}
+
+    def run(name, argv, module):
+        t0 = time.perf_counter()
+        out = module.main(argv)
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    n_val = len(LJSpeechDurationDataset(
+        stage_dirs["data_root"], stage_dirs["aligned"], split="val",
+        cache_dir=stage_dirs["vocab"].parent, audio=stage_dirs["audio"]))
+    check(n_val >= 1, f"a validation split ({n_val})")
+    mel_cuda.log_mel_cuda.launches = 0
+
+    s = run("test_encoder_setup", corpus + [
+        "--cache_dir", str(root / "cache_setup")], test_encoder_setup)
+    check(s["failures"] == 0 and math.isfinite(s["loss"]),
+          f"test_encoder_setup {s}")
+    print(f"phase 14 test_encoder_setup: SETUP OK, {s['samples']} corpus "
+          f"samples, vocab {s['vocab_size']}, {s['n_params']:,} encoder "
+          f"params, Huber loss {s['loss']:.4f} "
+          f"({times['test_encoder_setup']:.2f} s)", flush=True)
+
+    s = run("test_vae_setup", [], test_vae_setup)
+    check(s["failures"] == 0, f"test_vae_setup {s}")
+    print(f"phase 14 test_vae_setup: SETUP OK, generate() std "
+          f"{s['gen_std']:.4f}, flow invertibility max-abs "
+          f"{s['flow_err']:.3e} (< {test_vae_setup.FLOW_LIMIT}) "
+          f"({times['test_vae_setup']:.2f} s)", flush=True)
+
+    s = run("debug_vae_loss", [], debug_vae_loss)
+    check(s["agree"], f"debug_vae_loss derivations agree {s}")
+    print(f"phase 14 debug_vae_loss (IrisConfig()): step {s['step']}, "
+          f"recompute {s['manual']}, raw numpy {s['raw']}; the three agree "
+          f"within {debug_vae_loss.AGREE_LIMIT} "
+          f"({times['debug_vae_loss']:.2f} s)", flush=True)
+
+    s = run("test_trained_encoder", corpus + cache("encoder", False) + [
+        "--encoder_checkpoint", str(stage_dirs["encoder"])],
+        test_trained_encoder)
+    check(s and s["n_samples"] == n_val and math.isfinite(s["mae_frames"]),
+          f"test_trained_encoder {s}")
+    print(f"phase 14 test_trained_encoder ({s['n_samples']} val "
+          f"utterances): MAE {s['mae_frames']:.3f} frames "
+          f"({s['mae_ms']:.1f} ms), RMSE {s['rmse_frames']:.3f}, corr "
+          f"{s['corr']:.3f} -> {s['verdict']} "
+          f"({times['test_trained_encoder']:.2f} s)", flush=True)
+
+    s = run("validate_vae_checkpoint", corpus + stages
+            + cache("validate", True), validate_vae_checkpoint)
+    check(s and s["n_batches"] >= 1 and all(
+        math.isfinite(v) for v in s["means"].values())
+        and s["generate"]["finite"], f"validate_vae_checkpoint {s}")
+    m = s["means"]
+    print(f"phase 14 validate_vae_checkpoint ({s['n_batches']} batch): "
+          f"recon L1 {m['recon_l1']:.4f} -> {s['verdict']}, KL "
+          f"{m['kl']:.4f}, posterior-mean MCD {m['mcd_db']:.3f} dB, LSD "
+          f"{m['lsd_db']:.3f} dB; generate() std "
+          f"{s['generate']['std']:.4f}, mode collapse "
+          f"{s['generate']['collapse']} "
+          f"({times['validate_vae_checkpoint']:.2f} s)", flush=True)
+
+    rows = run("analyze_vae", corpus + stages + cache("analyze", True),
+               analyze_vae)
+    check(len(rows) == min(4, n_val) and all(
+        math.isfinite(r["mse"]) and math.isfinite(r["delta"]) for r in rows),
+        f"analyze_vae {rows}")
+    for r in rows:
+        print(f"phase 14 analyze_vae [{r['file_id']}]: recon MSE "
+              f"{r['mse']:.4f} ({r['rubric']}), recon std "
+              f"{r['recon_std']:.3f} vs {r['target_std']:.3f}, posterior "
+              f"|mean| {r['posterior_abs_mean']:.3f}; prior std "
+              f"{r['gen_std']:.3f}; random-conditioning |delta| "
+              f"{r['delta']:.3f} (live {r['live']}) "
+              f"({times['analyze_vae']:.2f} s)", flush=True)
+
+    s = run("test_synthesis", corpus + stages + cache("synthesis", True)
+            + ["--output_dir", str(root / "synthesis")], test_synthesis)
+    sr = stage_dirs["audio"].sample_rate
+    for name in ("reference", "generated"):
+        audio, rate = read_wav(s[name])
+        check(rate == sr and len(audio) > 0
+              and bool(np.isfinite(audio).all()), f"test_synthesis {name}")
+    check(all(math.isfinite(s[k]) for k in ("mse", "mae", "mcd_db",
+                                            "lsd_db")), f"test_synthesis {s}")
+    print(f"phase 14 test_synthesis [{s['file_id']}] (Griffin-Lim, 60 "
+          f"iterations on the card): MSE {s['mse']:.4f}, MAE {s['mae']:.4f},"
+          f" MCD {s['mcd_db']:.3f} dB, LSD {s['lsd_db']:.3f} dB; "
+          f"reference.wav and generated.wav written "
+          f"({times['test_synthesis']:.2f} s)", flush=True)
+
+    s = run("example", ["--output_wav", str(root / "example.wav")], example)
+    audio, rate = read_wav(root / "example.wav")
+    check(rate == sr and len(audio) == s["file_samples"] > 0
+          and s["samples"] > 0, f"example {s}")
+    print(f"phase 14 example (IrisConfig(), random weights): "
+          f"{s['samples']} samples ({s['seconds']:.2f} s), "
+          f"{s['file_samples']} to example.wav "
+          f"({times['example']:.2f} s)", flush=True)
+
+    # the path's launches, read after its last tool: one a val utterance
+    # for validate_vae_checkpoint's cache, one an analyzed utterance, one
+    # for test_synthesis's sample; then every cached mel against the plain
+    # version
+    launches = mel_cuda.log_mel_cuda.launches
+    want = n_val + min(4, n_val) + 1
+    check(launches == want,
+          f"log-mel launches on the diagnostics path: {launches} == {want}")
+    worst, n_mels = 0.0, 0
+    for d in mel_caches:
+        for f in sorted(d.glob("*.npy")):
+            audio = load_audio(Path(stage_dirs["data_root"]) / "wavs"
+                               / f"{f.stem}.wav")
+            plain = log_mel_spectrogram_plain(
+                torch.from_numpy(audio).to(dev), stage_dirs["audio"])
+            cached = np.load(f)
+            check(bool(np.isfinite(cached).all()), f"finite mel {f}")
+            worst = max(worst, max_abs(cached, plain))
+            n_mels += 1
+    check(n_mels == want, f"a cached mel a launch ({n_mels})")
+    check(worst <= 2e-3, f"diagnostics path mels vs plain max-abs {worst}")
+    total = time.perf_counter() - t_phase
+    print(f"phase 14 log-mel kernel on the diagnostics path: {launches} "
+          f"launches ({n_val} val utterance(s) x validate_vae_checkpoint, "
+          f"{min(4, n_val)} x analyze_vae, 1 x test_synthesis); every "
+          f"cached mel within {worst:.3e} of the plain version", flush=True)
+    print(f"phase 14 done in {total:.1f} s (tools: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in times.items())
+          + f" s; {card})", flush=True)
+    return launches
 
 
 # -- phase 11: multi-device on one card ----------------------------------------
@@ -3643,6 +3840,9 @@ def main() -> int:
 
         # -- 13. the C++ serving host (the native host path) ------------------
         native_launches = phase13_native(dev, card, native_job)
+
+        # -- 14. the diagnostics and pre-flight tools (the diagnostics path) --
+        diag_launches = phase14_diagnostics(dev, card, stage_dirs)
     finally:
         stage_dirs["tmp"].cleanup()
         stop_native_export(native_job)
@@ -3660,7 +3860,7 @@ def main() -> int:
         "launches": launches + train_launches + serve_launches
         + aot_launches + bf16_launches + cli_launches + mesh_launches
         + tp_launches + serve_mesh_launches + demo_launches
-        + native_launches,
+        + native_launches + diag_launches,
         "launches_by_path": {"synthesis": launches,
                              "training": train_launches,
                              "serving": serve_launches,
@@ -3671,7 +3871,8 @@ def main() -> int:
                              "model_axis": tp_launches,
                              "serve_mesh": serve_mesh_launches,
                              "vocoder_demo": demo_launches,
-                             "native_host": native_launches},
+                             "native_host": native_launches,
+                             "diagnostics": diag_launches},
         "max_abs_err": worst,
         "ms": k_ms,
         "plain_ms": p_ms,

@@ -471,10 +471,6 @@ class TTSPipeline:
     def _assemble(cls, config, model, vocab, text_processor, device,
                   use_postnet, seed, upsample="hard",
                   dtype: DtypeLike = None) -> "TTSPipeline":
-        if config.hifigan.total_upsample != config.audio.hop_length:
-            raise ValueError(
-                f"HiFiGAN upsamples by {config.hifigan.total_upsample} but "
-                f"hop_length is {config.audio.hop_length}")
         pin_math_precision()
         dtype = resolve_dtype(dtype)
         model = set_dtype(model.to(device).eval(), dtype)

@@ -1,6 +1,10 @@
 """Port parity: the port's own copy of the text frontend gives the same
 phoneme ids as the JAX package's (both with their defaults, neural G2P on;
-``tests/test_torch_g2p.py`` holds the rules-only case)."""
+``tests/test_torch_g2p.py`` holds the rules-only case), and its
+normalizer passes the JAX package's two normalization goldens, read in
+place from ``tests/data``."""
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -42,3 +46,40 @@ def test_text_to_ids_matches_jax(frontends, text):
 def test_vocab_matches_jax():
     assert (PhonemeVocab.default_arpabet().phoneme_to_id
             == JaxVocab.default_arpabet().phoneme_to_id)
+
+
+GOLDEN = Path(__file__).parent / "data"
+
+
+def _golden_cases(name):
+    return [line.split(" || ")
+            for line in (GOLDEN / name).read_text().splitlines()
+            if line and not line.startswith("#")]
+
+
+def _golden_failures(cases):
+    from iris_tts_tpu_torch.text.normalize import normalize_text
+
+    return [(src, want, normalize_text(src)) for src, want in cases
+            if normalize_text(src) != want]
+
+
+def test_normalization_golden_file():
+    """The NeMo-class constructs of ``normalize_golden.txt``: times,
+    fractions, mixed numbers, ranges, roman numerals, units, degrees,
+    currency, percents, ordinals, years and decades, dates,
+    abbreviations."""
+    cases = _golden_cases("normalize_golden.txt")
+    assert len(cases) >= 50
+    failures = _golden_failures(cases)
+    assert not failures, failures[:5]
+
+
+def test_normalization_corpus_golden():
+    """The corpus-scale golden (``normalize_corpus_golden.txt``, 514
+    generated cases in 18 classes; the port's generator reproduces it,
+    ``tests/test_torch_diagnostics.py``)."""
+    cases = _golden_cases("normalize_corpus_golden.txt")
+    assert len(cases) >= 500
+    failures = _golden_failures(cases)
+    assert not failures, (len(failures), failures[:5])
