@@ -217,6 +217,7 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import signal
 import statistics
 import subprocess
@@ -2537,8 +2538,6 @@ def phase14_diagnostics(dev, card: str, stage_dirs) -> int:
     cache directory holding only the training vocab, so its mels go
     through the log-mel kernel. Returns the kernel's launches on this
     path, checked exactly."""
-    import shutil
-
     import numpy as np
 
     from iris_tts_tpu_torch.data.audio_io import load_audio, read_wav

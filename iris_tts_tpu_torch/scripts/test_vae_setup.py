@@ -18,7 +18,6 @@ import argparse
 import sys
 import traceback
 
-import numpy as np
 import torch
 
 from iris_tts_tpu_torch.models import TextConditionedVAE, VolumePreservingFlow

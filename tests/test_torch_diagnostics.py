@@ -6,6 +6,7 @@ building blocks give on the same weights and the same validation split
 output against the JAX scripts' own, and the JAX package's command-line
 tests of the tools mirrored."""
 
+import argparse
 import dataclasses
 import hashlib
 import importlib
@@ -532,6 +533,51 @@ def test_gen_normalize_corpus_aborts_on_a_property_failure(monkeypatch):
     with pytest.raises(SystemExit) as e:
         gen_normalize_corpus.main([])
     assert e.value.code == 1
+
+
+# ---------------------------------------------------------------------------
+# the tools' options against the JAX scripts'
+# ---------------------------------------------------------------------------
+
+# Where each JAX tool lives (the root-level ones are modules of the repo
+# root; JAX's example.py has no parser).
+JAX_TOOLS = {t: (t if t in ("demo_text_processing", "investigate_durations",
+                            "debug_vae_loss", "analyze_vae")
+                 else f"scripts.{t}")
+             for t in TOOLS if t != "example"}
+# Options the port has and the JAX tool lacks: the device, and where the
+# generator's --freeze writes (JAX writes into its tests/data).
+EXTRA_OPTIONS = {**{t: {"--device"} for t in DEVICE_TOOLS},
+                 "gen_normalize_corpus": {"--output"}}
+
+
+class _Parsed(Exception):
+    pass
+
+
+def _options(main, monkeypatch, *args) -> set:
+    """The option strings of the parser ``main`` builds: its
+    ``parse_args`` hands the parser over instead of parsing."""
+    seen = {}
+
+    def capture(self, args=None, namespace=None):
+        seen["parser"] = self
+        raise _Parsed
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", capture)
+    with pytest.raises(_Parsed):
+        main(*args)
+    return {o for a in seen["parser"]._actions for o in a.option_strings}
+
+
+@pytest.mark.parametrize("tool", sorted(JAX_TOOLS))
+def test_tool_options_are_jaxs(tool, monkeypatch):
+    theirs = _options(importlib.import_module(JAX_TOOLS[tool]).main,
+                      monkeypatch)
+    ours = _options(importlib.import_module(
+        f"iris_tts_tpu_torch.scripts.{tool}").main, monkeypatch, [])
+    assert ours == theirs | EXTRA_OPTIONS.get(tool, set()), (
+        ours ^ theirs)
 
 
 # ---------------------------------------------------------------------------

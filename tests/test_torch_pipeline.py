@@ -143,6 +143,33 @@ def test_synthesize_mel_and_vocode_match_jax(pipes):
     _assert_same_audio(got_audio, want_audio)
 
 
+def test_vocoder_upsampling_apart_from_the_hop_matches_jax():
+    """A HiFiGAN whose total upsampling (8) is not the audio hop (256):
+    the JAX pipeline takes it (its convergence test trains one), and so
+    does the port, with JAX's audio (samples a frame = the upsampling)."""
+    import iris_tts_tpu.config as jcfg
+
+    cfg = small_config()
+    cfg = dataclasses.replace(cfg, hifigan=dataclasses.replace(
+        cfg.hifigan, upsample_rates=(4, 2), upsample_kernel_sizes=(8, 4)))
+    assert cfg.hifigan.total_upsample != cfg.audio.hop_length
+    assert isinstance(cfg, jcfg.IrisConfig)
+    jpipe = JPipeline.initialize(cfg, seed=3)
+    jpipe.params["hifigan"] = jax.tree_util.tree_map_with_path(
+        lambda p, a: a * (15.0 if p[-1].key == "kernel" else 1.0),
+        jpipe.params["hifigan"])
+    jpipe = dataclasses.replace(jpipe, **BUCKETS)
+    pipe = dataclasses.replace(TTSPipeline.from_jax_params(
+        numpy_tree(jpipe.params), port_config(jpipe.config), device="cpu"),
+        **BUCKETS)
+    _assert_clear_of_half(jpipe, [SENTENCE])
+    mel = pipe.synthesize_mel(SENTENCE, temperature=0.0)
+    want = jpipe.synthesize(SENTENCE, temperature=0.0)
+    got = pipe.synthesize(SENTENCE, temperature=0.0)
+    assert len(got) == 8 * len(mel)
+    _assert_same_audio(got, want)
+
+
 def test_seeded_prior_is_reproducible(pipes):
     _, pipe = pipes
     a = pipe.synthesize(SENTENCE, seed=5)
