@@ -194,16 +194,28 @@ every kernel against its plain PyTorch version:
    durations, MSE/MAE, quality, Griffin-Lim on the card, both wavs) and
    ``example``; each tool that reads the validation mels gets a fresh
    cache, so they go through the kernel: its launches counted exactly
-   and every cached mel within 2e-3 of the plain version.
+   and every cached mel within 2e-3 of the plain version;
+15. the speed-of-light, memory and vocoder-profile tools, in-process
+   through their ``main(argv)`` on the card: ``roofline`` at B=8, T=1024,
+   P=256 in f32 and bf16 (each stage's FLOPs and eager bytes, its bound at
+   the data-sheet peaks), the same fused dispatch's device time (CUDA
+   events) and t_sol / measured; the f32 vocoder's count at B=1, T=32 on
+   the card equal to the CPU's; ``mem_analysis`` for the VAE and GAN steps
+   at the JAX tool's defaults in f32 and bf16 (the allocator's rows beside
+   the tracker's for the same steps, phase 9's GAN round peaks beside
+   them); ``profile_vocoder`` at 12 s × 8 in bf16 and f32; after the
+   profile line, phase 3's sentence counted at its fused frame budget
+   beside the profile's device busy time.
 
-Twelve paths drive the kernel, or not: synthesis (phases 3 and 4),
+Thirteen paths drive the kernel, or not: synthesis (phases 3 and 4),
 training (phase 6), serving (phase 7), AOT serving (phase 8), bf16
 (phase 9's copy synthesis), the command line (phase 10), the data-axis
 mesh (phases 11a and 11b, counted in their rank processes), the model
 axis (11c, counted in its rank processes), ``serve --mesh`` (11d,
 counted in its two rank processes, read from their logs), the demo
-vocoder (12d), the C++ host (13) and the diagnostics (14); the serving
-paths, the model axis and the C++ host compute no log-mel: 0 launches. Each path's
+vocoder (12d), the C++ host (13), the diagnostics (14) and the analysis
+tools (15); the serving paths, the model axis, the C++ host and the
+analysis tools compute no log-mel: 0 launches. Each path's
 launch counts are zeroed just before it and read just after, and a
 kernel of the path that was not launched fails the run.
 The last three lines are the card's name and power limit, a
@@ -1607,6 +1619,9 @@ def phase9_bf16(dev, card: str, pipe, handoff) -> int:
                 step_ms.append((time.perf_counter() - t1) * 1e3)
                 losses.append(float(m[key]))
             peak = torch.cuda.max_memory_allocated()
+            if name == "GAN round":  # phase 15 prints these beside its own
+                handoff.setdefault("gan_round_peak_mib", {})[tag] = (
+                    peak / 2**20)
             if name == "GAN round" and not remat:
                 profile_line(f"phase 9 GAN round {tag}",
                              lambda: float(run(state)[1][key]), card)
@@ -2704,6 +2719,181 @@ def phase14_diagnostics(dev, card: str, stage_dirs) -> int:
           + ", ".join(f"{k} {v:.2f}" for k, v in times.items())
           + f" s; {card})", flush=True)
     return launches
+
+
+# -- phase 15: the speed-of-light, memory and vocoder-profile tools -----------
+
+# The JAX tools' default dispatch: batch, phonemes, frames.
+ANALYSIS_SHAPE = (8, 256, 1024)
+# Frames of the f32 vocoder count held equal on the card and the CPU (the
+# shape at which the CPU tests hold it to XLA's count, batch 1).
+COUNT_CHECK_FRAMES = 32
+MEM_ROWS = {"vae": [("vae", False), ("vae", True)],
+            "gan": [("gan_gen", False), ("gan_disc", False),
+                    ("gan_gen", True)]}
+
+
+def phase15_analysis(dev, card: str, pipe, handoff):
+    """The analysis path on the card (see the module docstring):
+    ``roofline``, ``mem_analysis`` and ``profile_vocoder`` through their
+    ``main(argv)`` on the card by default, beside the measured device time
+    of the dispatch the roofline bounds and the tracker's memory rows.
+    ``pipe`` is phase 3's pipeline (``IrisConfig()``, seed 0: the
+    roofline's weights). Returns the kernel's launches on this path
+    (checked to be 0) and (frames, budget, (FLOPs, bytes)) of phase 3's
+    sentence, for the line after the profile."""
+    import copy
+
+    from iris_tts_tpu_torch.ops import mel_cuda
+    from iris_tts_tpu_torch.scripts import (
+        mem_analysis,
+        profile_vocoder,
+        roofline,
+    )
+
+    t_phase = time.perf_counter()
+    mel_cuda.log_mel_cuda.launches = 0
+    B, P, T = ANALYSIS_SHAPE
+    hop = pipe.config.hifigan.total_upsample
+
+    # (a) the roofline of one fused dispatch, and the dispatch timed
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        report = roofline.main(["--batch", str(B), "--phonemes", str(P),
+                                "--frames", str(T), "--dtype", dtype])
+        count_s = time.perf_counter() - t0
+        for r in report["stages"]:
+            check(r["gflops"] > 0 and r["gbytes"] > 0,
+                  f"roofline {dtype} {r['stage']}: work counted")
+            print(f"phase 15 roofline {dtype} {r['stage']}: "
+                  f"{r['gflops']:.3f} GFLOP, {r['gbytes']:.4f} GB, "
+                  f"{r['arith_intensity']:.1f} FLOP/B -> t_fl "
+                  f"{r['t_flops_ms']:.4f} ms, t_hbm {r['t_hbm_ms']:.4f} ms, "
+                  f"{r['bound']}-bound, SoL {r['sol_rt_factor']:.0f}x "
+                  f"realtime (B={B}, P={P}, T={T}; data-sheet peaks "
+                  f"{report['peak_tflops']} TFLOP/s, "
+                  f"{report['peak_hbm_gbps']} GB/s; {card})", flush=True)
+        view = pipe if dtype == "float32" else replace(
+            pipe, dtype=torch.bfloat16)
+        fused = roofline.stage_fns(view, B, P, T)["fused end-to-end"]
+        with torch.inference_mode():
+            audio = fused()[0]
+            check(audio.shape == (B, T * hop) and audio.dtype == torch.int16,
+                  f"fused dispatch {dtype}: PCM16 [{B}, {T * hop}]")
+            ms = time_cuda_ms(fused, reps=3, warmup=1, graph=False)
+        e2e = report["stages"][-1]
+        t_sol = max(e2e["t_flops_ms"], e2e["t_hbm_ms"])
+        print(f"phase 15 fused dispatch {dtype} measured: {ms:.3f} ms of "
+              f"device time (CUDA events around 3 eager calls after a "
+              f"warm-up), {report['audio_s_per_dispatch'] * 1e3 / ms:.0f}x "
+              f"realtime; t_sol {t_sol:.3f} ms ({e2e['bound']}), t_sol / "
+              f"measured {t_sol / ms:.4f}; counted in {count_s:.1f} s "
+              f"({card})", flush=True)
+
+    mel = torch.zeros((1, COUNT_CHECK_FRAMES,
+                       pipe.config.hifigan.in_channels))
+    on_cpu = roofline.count_cost(copy.deepcopy(pipe.model.hifigan).cpu(),
+                                 mel)
+    on_card = roofline.count_cost(pipe.model.hifigan, mel.to(dev))
+    check(on_card == on_cpu, f"f32 vocoder count, card {on_card} == CPU "
+                             f"{on_cpu}")
+    print(f"phase 15 f32 vocoder count at B=1, T={COUNT_CHECK_FRAMES}: "
+          f"{on_card[0]} FLOPs, {on_card[1]} bytes on the card, equal to the "
+          f"CPU's", flush=True)
+    frames = len(pipe.synthesize(SENTENCE, seed=1)) // hop
+    budget = pipe._fused_frame_budget(pipe._encode_texts([SENTENCE])[1])
+    sentence = roofline.count_cost(lambda: pipe.synthesize(SENTENCE, seed=1))
+
+    # (b) memory of the training steps: the allocator's rows (the CLI) and
+    # the tracker's for the same steps on the card
+    peaks = handoff.get("gan_round_peak_mib", {})
+    for stage in ("vae", "gan"):
+        for bf16 in (False, True):
+            torch.cuda.empty_cache()
+            rows = mem_analysis.main(["--stage", stage]
+                                     + (["--bf16"] if bf16 else []))
+            tracked = mem_analysis.analysis_rows(stage, 8, 1024, 64, bf16,
+                                                 dev, method="tracker")
+            for got in (rows, tracked):
+                check([(r["stage"], r["remat"]) for r in got]
+                      == MEM_ROWS[stage], f"mem_analysis {stage} rows")
+                check(all(r["temp_mib"] > 0 for r in got),
+                      f"mem_analysis {stage}: positive temp")
+            for a, t in zip(rows, tracked):
+                print(f"phase 15 mem_analysis {a['stage']} {a['dtype']} "
+                      f"remat={a['remat']} B={a['B']} T={a['T']}: allocator "
+                      f"temp {a['temp_mib']} / args {a['args_mib']} / out "
+                      f"{a['out_mib']} MiB; tracker {t['temp_mib']} / "
+                      f"{t['args_mib']} / {t['out_mib']} MiB; temp "
+                      f"allocator/tracker "
+                      f"{a['temp_mib'] / t['temp_mib']:.3f} ({card})",
+                      flush=True)
+    if peaks:
+        print("phase 15 phase 9's GAN round peak (16 x 8192 samples, both "
+              "steps): " + " / ".join(f"{k} {v:.1f}" for k, v in
+                                      peaks.items())
+              + f" MiB, beside the rows above (8 x 1024 frames, a step) "
+              f"({card})", flush=True)
+
+    # (c) the vocoder stage by stage at onchip_evidence.sh's shape, each
+    # part's time beside its own bound at the data-sheet peaks
+    for dtype in ("bf16", "f32"):
+        prof = profile_vocoder.main(["--seconds", "12", "--batch", "8",
+                                     "--dtype", dtype])
+        check(all(v > 0 for v in prof["parts_ms"].values()),
+              f"profile_vocoder {dtype}: every part timed")
+        gen, x = profile_vocoder.build_generator(12, 8, dtype, dev)
+        costs = {}
+        with torch.no_grad():
+            for name, call in profile_vocoder.stage_calls(gen):
+                costs[name] = roofline.count_cost(call, x)
+                x = call(x)
+        del gen, x
+        parts = []
+        for r in roofline.roofline_rows(
+                costs, 0.0, roofline.PEAK_TFLOPS[
+                    "bfloat16" if dtype == "bf16" else "float32"],
+                roofline.PEAK_HBM_GBPS):
+            ms = prof["parts_ms"][r["stage"]]
+            t_sol = max(r["t_flops_ms"], r["t_hbm_ms"])
+            parts.append(f"{r['stage']} {ms:.3f} ms, {r['gflops']:.1f} "
+                         f"GFLOP {r['gbytes']:.3f} GB, bound {t_sol:.3f} ms "
+                         f"({r['bound']}), {t_sol / ms:.3f} of it")
+        print(f"phase 15 profile_vocoder {dtype} (12 s x 8): full "
+              f"{prof['full_ms']:.3f} ms, parts {prof['sum_ms']:.3f} ms; "
+              + "; ".join(parts) + f" ({card})", flush=True)
+
+    launches = mel_cuda.log_mel_cuda.launches
+    check(launches == 0, f"log-mel launches on the analysis path: "
+                         f"{launches} == 0")
+    # The profile line after this phase times a warm call: this phase
+    # emptied the allocator's cache, so one call refills its pools first.
+    t0 = time.perf_counter()
+    pipe.synthesize(SENTENCE, seed=1)
+    print(f"phase 15 done in {time.perf_counter() - t_phase:.1f} s (the "
+          f"sentence once more to refill the pools: "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms; {card})", flush=True)
+    return launches, (frames, budget, sentence)
+
+
+def phase15_sentence_line(card: str, sentence, busy_rows) -> None:
+    """Phase 3's sentence: its counted work at the f32 data-sheet peaks
+    beside the device busy time of the profile line just printed."""
+    from iris_tts_tpu_torch.scripts import roofline
+
+    frames, budget, cost = sentence
+    r, = roofline.roofline_rows({"sentence": cost}, 0.0,
+                                roofline.PEAK_TFLOPS["float32"],
+                                roofline.PEAK_HBM_GBPS)
+    t_sol = max(r["t_flops_ms"], r["t_hbm_ms"])
+    busy_ms = sum(t for _, t in busy_rows) / 1e3
+    busy = (f"device busy {busy_ms:.2f} ms in the profile line above, "
+            f"{busy_ms / t_sol:.2f}x the bound" if busy_ms > 0
+            else "device busy not measured")
+    print(f"phase 15 the sentence ({frames} frames, a {budget}-frame fused "
+          f"budget), f32: {r['gflops']:.3f} GFLOP, {r['gbytes']:.4f} GB -> "
+          f"t_fl {r['t_flops_ms']:.3f} ms, t_hbm {r['t_hbm_ms']:.3f} ms "
+          f"({r['bound']}-bound); {busy} ({card})", flush=True)
 
 
 # -- phase 11: multi-device on one card ----------------------------------------
@@ -3846,9 +4036,14 @@ def main() -> int:
         stage_dirs["tmp"].cleanup()
         stop_native_export(native_job)
 
+    # -- 15. the speed-of-light, memory and vocoder-profile tools (the
+    # analysis path) -------------------------------------------------------
+    analysis_launches, sentence = phase15_analysis(dev, card, pipe, handoff)
+
     # -- where the time goes: one fused synthesize under the profiler --------
-    profile_line("fused synthesize", lambda: pipe.synthesize(SENTENCE, seed=1),
-                 card)
+    busy_rows = profile_line("fused synthesize",
+                             lambda: pipe.synthesize(SENTENCE, seed=1), card)
+    phase15_sentence_line(card, sentence, busy_rows)
 
     jax_pkg = iris_tts_tpu_torch.__name__.removesuffix("_torch")
     kernels = [{
@@ -3859,7 +4054,7 @@ def main() -> int:
         "launches": launches + train_launches + serve_launches
         + aot_launches + bf16_launches + cli_launches + mesh_launches
         + tp_launches + serve_mesh_launches + demo_launches
-        + native_launches + diag_launches,
+        + native_launches + diag_launches + analysis_launches,
         "launches_by_path": {"synthesis": launches,
                              "training": train_launches,
                              "serving": serve_launches,
@@ -3871,7 +4066,8 @@ def main() -> int:
                              "serve_mesh": serve_mesh_launches,
                              "vocoder_demo": demo_launches,
                              "native_host": native_launches,
-                             "diagnostics": diag_launches},
+                             "diagnostics": diag_launches,
+                             "analysis": analysis_launches},
         "max_abs_err": worst,
         "ms": k_ms,
         "plain_ms": p_ms,

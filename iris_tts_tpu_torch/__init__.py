@@ -22,8 +22,7 @@ from iris_tts_tpu_torch.config import (
     load_config,
     save_config,
 )
-
-__version__ = "0.1.0"
+from iris_tts_tpu_torch.version import __version__
 
 
 def __getattr__(name):

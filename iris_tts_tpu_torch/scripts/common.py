@@ -167,6 +167,33 @@ def run_loop(loop, checkify: bool = False):
     return loop.run()
 
 
+def sync(out) -> None:
+    """Wait for the device work behind ``out``: ``torch.cuda.synchronize``
+    when any tensor in it lies on a CUDA device (the CPU computes eagerly,
+    so nothing is owed there)."""
+    from torch.utils._pytree import tree_leaves
+
+    for t in tree_leaves(out):
+        if isinstance(t, torch.Tensor) and t.is_cuda:
+            torch.cuda.synchronize(t.device)
+            return
+
+
+def avg_ms(fn, args_cycle, n: int = 30) -> float:
+    """Wall time per call: one warm-up call, then ``n`` calls queued over
+    the inputs of ``args_cycle`` in turn (each a tuple of arguments, or one
+    argument), then one device barrier, so the launches overlap the device
+    work as a caller's loop would."""
+    args_cycle = [a if isinstance(a, tuple) else (a,) for a in args_cycle]
+    sync(fn(*args_cycle[0]))
+    t0 = time.perf_counter()
+    out = None
+    for i in range(n):
+        out = fn(*args_cycle[i % len(args_cycle)])
+    sync(out)
+    return 1000 * (time.perf_counter() - t0) / n
+
+
 # -- multi-device ------------------------------------------------------------
 
 # How long a --force_cpu_devices launch waits for its ranks.
