@@ -205,17 +205,32 @@ every kernel against its plain PyTorch version:
    the tracker's for the same steps, phase 9's GAN round peaks beside
    them); ``profile_vocoder`` at 12 s × 8 in bf16 and f32; after the
    profile line, phase 3's sentence counted at its fused frame budget
-   beside the profile's device busy time.
+   beside the profile's device busy time;
+16. the benchmark drivers, in-process through their ``main(argv)`` on the
+   card: ``python -m iris_tts_tpu_torch.bench`` (its two cold-start child
+   processes, the AOT export and a fresh process to first audio; B=8 and
+   B=128 × 1024 frames in bf16, the fused and public-API p50s, the
+   roofline of the B=128 dispatch: ``sol_fraction`` ≤ 1),
+   ``bench_batch_sweep --batches 1,8,32``, ``bench_serve`` on phase 7's
+   cut ladders (closed loop in-process, closed loop over ``--http``, and
+   ``--ab_max_batch_limit 16`` at one open-loop rate: every request
+   completed), ``bench_stream`` in f32 and ``--pcm16`` (the stream within
+   1e-5 of the full pass's peak, one LSB), ``bench_train`` for the VAE
+   step and the GAN round in f32 and ``--bf16``, and ``bench_mel`` at its
+   defaults (the kernel's launches counted exactly, every output within
+   2e-3 of the plain version); each JSON line parsed, its rates and
+   times positive, and the phase's wall time.
 
-Thirteen paths drive the kernel, or not: synthesis (phases 3 and 4),
+Fourteen paths drive the kernel, or not: synthesis (phases 3 and 4),
 training (phase 6), serving (phase 7), AOT serving (phase 8), bf16
 (phase 9's copy synthesis), the command line (phase 10), the data-axis
 mesh (phases 11a and 11b, counted in their rank processes), the model
 axis (11c, counted in its rank processes), ``serve --mesh`` (11d,
 counted in its two rank processes, read from their logs), the demo
-vocoder (12d), the C++ host (13), the diagnostics (14) and the analysis
-tools (15); the serving paths, the model axis, the C++ host and the
-analysis tools compute no log-mel: 0 launches. Each path's
+vocoder (12d), the C++ host (13), the diagnostics (14), the analysis
+tools (15) and the benchmark drivers (16, where ``bench_mel`` alone
+computes log-mels); the serving paths, the model axis, the C++ host and
+the analysis tools compute no log-mel: 0 launches. Each path's
 launch counts are zeroed just before it and read just after, and a
 kernel of the path that was not launched fails the run.
 The last three lines are the card's name and power limit, a
@@ -2896,6 +2911,178 @@ def phase15_sentence_line(card: str, sentence, busy_rows) -> None:
           f"({r['bound']}-bound); {busy} ({card})", flush=True)
 
 
+
+# -- phase 16: the benchmark drivers --------------------------------------------
+
+# bench_serve on phase 7's cut ladders: the closed loop in-process and over
+# HTTP, then the fixed/adaptive A/B at one open-loop rate.
+BENCH_SERVE_LADDERS = [
+    "--phoneme_buckets", ",".join(map(str, SERVE_PHONEME_BUCKETS)),
+    "--frame_buckets", ",".join(map(str, SERVE_FRAME_BUCKETS))]
+BENCH_SERVE_RUNS = (
+    ["--clients", "8", "--requests", "2"],
+    ["--http", "--clients", "8", "--requests", "2"],
+    ["--ab_max_batch_limit", "16", "--offered_qps", "20", "--requests",
+     "24"],
+)
+# bench_mel at its defaults: two cases, each the kernel once for the
+# max-abs, then avg_ms's warm-up call and 30 timed calls.
+BENCH_MEL_LAUNCHES = 2 * (1 + 1 + 30)
+# Values that may be 0: seconds JAX's rounding can leave at 0 on a fast
+# card (the second trivial op's, a first call's to 0.1 s) and a count.
+NON_NEGATIVE = {"cold_start_marginal_jit_s", "compile_s", "rejected_503"}
+
+
+def _check_positive(row: dict, what: str) -> None:
+    """Every number in a driver's JSON line (nested ones too) is positive,
+    those of ``NON_NEGATIVE`` non-negative; the marginal scaling
+    efficiency, a ratio of gains, may take either sign."""
+    for k, v in row.items():
+        if isinstance(v, dict):
+            _check_positive(v, f"{what} {k}")
+        elif (isinstance(v, (int, float)) and not isinstance(v, bool)
+              and k != "marginal_scaling_eff"):
+            check(v >= 0 if k in NON_NEGATIVE else v > 0,
+                  f"{what}: {k} = {v} positive")
+
+
+def phase16_bench(dev, card: str):
+    """The benchmark drivers on the card (see the module docstring), each
+    through its ``main(argv)`` as a user runs it, on its default device.
+    Returns the log-mel launches on this path (checked: ``bench_mel``'s
+    exactly) and the worst kernel-vs-plain max-abs of its outputs."""
+    from iris_tts_tpu_torch import bench
+    from iris_tts_tpu_torch.config import AudioConfig
+    from iris_tts_tpu_torch.ops import mel_cuda
+    from iris_tts_tpu_torch.ops.stft import log_mel_spectrogram_plain
+    from iris_tts_tpu_torch.scripts import (
+        bench_batch_sweep,
+        bench_mel,
+        bench_serve,
+        bench_stream,
+        bench_train,
+    )
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the cold-start children share the card
+    mel_cuda.log_mel_cuda.launches = 0
+    walls = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    # (a) the headline bench, its cold-start children first
+    line = timed("bench", lambda: bench.main([]))
+    check(line["metric"] == "synthesis_rtf_per_chip", "bench metric")
+    check(line["bulk_batch"] == bench.BULK_BATCH, "bench bulk batch")
+    check("cold_start_to_first_audio_s" in line, "bench ran its cold start")
+    check(line["sol_fraction"] <= 1.0,
+          f"bench sol_fraction {line['sol_fraction']} <= 1.0")
+    _check_positive(line, "bench")
+    print(f"phase 16 bench: {line['value']}x realtime at B="
+          f"{line['bulk_batch']} (rtf_b8 {line['rtf_b8']}x), "
+          f"{line['mel_frames_per_sec']} mel frames/s; p50 fused "
+          f"{line['p50_fused_dispatch_ms']} ms, public API "
+          f"{line['p50_public_api_ms']} ms (PCM16 "
+          f"{line['p50_public_api_pcm16_ms']} ms); speed of light "
+          f"{line['sol_rt_factor']}x ({line['sol_bound']}), sol_fraction "
+          f"{line['sol_fraction']}; cold start to first audio "
+          f"{line['cold_start_to_first_audio_s']} s (export "
+          f"{line['aot_export_s']} s) in {walls['bench']:.1f} s ({card})",
+          flush=True)
+
+    # (b) throughput against batch size
+    rows = timed("bench_batch_sweep",
+                 lambda: bench_batch_sweep.main(["--batches", "1,8,32"]))
+    check([r["batch"] for r in rows] == [1, 8, 32], "sweep batches")
+    check(rows[0]["marginal_scaling_eff"] is None
+          and all(r["marginal_scaling_eff"] is not None for r in rows[1:]),
+          "sweep efficiency from the second point on")
+    for r in rows:
+        _check_positive(r, f"sweep B={r['batch']}")
+    print("phase 16 bench_batch_sweep (bf16, 1024 frames): " + "; ".join(
+        f"B={r['batch']} {r['rtf']}x, {r['step_ms']} ms, eff "
+        f"{r['marginal_scaling_eff']}" for r in rows)
+        + f" in {walls['bench_batch_sweep']:.1f} s ({card})", flush=True)
+
+    # (c) serving under load
+    for i, argv in enumerate(BENCH_SERVE_RUNS):
+        payloads = timed(f"bench_serve {i}",
+                         lambda: bench_serve.main(argv + BENCH_SERVE_LADDERS))
+        check(len(payloads) == (2 if "--ab_max_batch_limit" in argv else 1),
+              f"bench_serve {argv}: one line a configuration")
+        for p in payloads:
+            check(p["requests_completed"] == p["requests_sent"],
+                  f"bench_serve {argv}: {p['requests_completed']} of "
+                  f"{p['requests_sent']} requests completed")
+            _check_positive(p, f"bench_serve {argv}")
+            print(f"phase 16 bench_serve {p['mode']} {p['transport']} "
+                  f"batcher={p['batcher']} limit={p['max_batch_limit']} "
+                  f"rate={p['offered_qps']}: {p['value']} req/s, p50/p95/max "
+                  f"{p['latency_ms']['p50']} / {p['latency_ms']['p95']} / "
+                  f"{p['latency_ms']['max']} ms, {p['audio_rt_factor']}x "
+                  f"realtime, mean batch {p['mean_batch_size']} "
+                  f"{p['batch_size_hist']} ({card})", flush=True)
+        print(f"phase 16 bench_serve run {i} in "
+              f"{walls[f'bench_serve {i}']:.1f} s", flush=True)
+
+    # (d) the streaming vocoder against the full pass
+    for argv in ([], ["--pcm16"]):
+        res = timed(f"bench_stream {argv}", lambda: bench_stream.main(argv))
+        check(res["ok"], f"bench_stream {argv}: stream equals the full pass")
+        _check_positive({k: v for k, v in res.items() if k != "err"},
+                        f"bench_stream {argv}")
+        print(f"phase 16 bench_stream {argv}: full {res['full_ms']:.2f} ms, "
+              f"TTFA {res['ttfa_ms']:.2f} ms, total {res['total_ms']:.2f} "
+              f"ms, {res['chunks']} chunks, err {res['err']} ({card})",
+              flush=True)
+
+    # (e) training throughput
+    for stage in ("vae", "gan"):
+        for extra in ([], ["--bf16"]):
+            argv = ["--stage", stage] + extra
+            out = timed(f"bench_train {argv}",
+                        lambda: bench_train.main(argv))
+            _check_positive(out, f"bench_train {argv}")
+            print(f"phase 16 bench_train {argv}: {out['metric']} "
+                  f"{out['value']} {out['unit']}, {out['step_ms']} ms a "
+                  f"step, batch {out['batch']} ({card})", flush=True)
+
+    # (f) the log-mel kernel against the differentiable composition
+    mel = timed("bench_mel", lambda: bench_mel.main([]))
+    launches = mel_cuda.log_mel_cuda.launches
+    check(launches == BENCH_MEL_LAUNCHES,
+          f"log-mel launches on the bench path: {launches} == "
+          f"{BENCH_MEL_LAUNCHES}")
+    cfg = AudioConfig()
+    worst = 0.0
+    for case in ("single", "batch"):
+        res, inputs = mel[case], mel["inputs"][case]
+        check(res is not None, f"bench_mel {case} ran the kernel")
+        check(res["maxabs"] <= 2e-3, f"bench_mel {case}: kernel vs xla "
+                                     f"{res['maxabs']} <= 2e-3")
+        errs = [max_abs(res["kernel_out"],
+                        log_mel_spectrogram_plain(inputs[0], cfg))]
+        errs += [max_abs(mel_cuda.log_mel_cuda(a, cfg),
+                         log_mel_spectrogram_plain(a, cfg))
+                 for a in inputs]
+        check(max(errs) <= 2e-3, f"bench_mel {case}: kernel vs plain "
+                                 f"{max(errs)} <= 2e-3")
+        worst = max(worst, max(errs))
+        print(f"phase 16 bench_mel {case}: xla {res['xla_ms']:.4f} ms, "
+              f"kernel {res['kernel_ms']:.4f} ms (avg_ms: eager, host "
+              f"clock), {res['speedup']:.2f}x; kernel vs xla "
+              f"{res['maxabs']:.3e}, vs plain {max(errs):.3e} ({card})",
+              flush=True)
+    print(f"phase 16 done in {time.perf_counter() - t_phase:.1f} s: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+          + f"; {launches} log-mel launches, all from bench_mel ({card})",
+          flush=True)
+    return launches, worst
+
 # -- phase 11: multi-device on one card ----------------------------------------
 
 # Eight sentences for the data-parallel batch (four a rank at world size 2).
@@ -4045,6 +4232,10 @@ def main() -> int:
                              lambda: pipe.synthesize(SENTENCE, seed=1), card)
     phase15_sentence_line(card, sentence, busy_rows)
 
+    # -- 16. the benchmark drivers (the bench path) ---------------------------
+    bench_launches, bench_err = phase16_bench(dev, card)
+    check(bench_launches >= 1, "the bench path launched the log-mel kernel")
+
     jax_pkg = iris_tts_tpu_torch.__name__.removesuffix("_torch")
     kernels = [{
         "name": "log_mel",
@@ -4054,7 +4245,8 @@ def main() -> int:
         "launches": launches + train_launches + serve_launches
         + aot_launches + bf16_launches + cli_launches + mesh_launches
         + tp_launches + serve_mesh_launches + demo_launches
-        + native_launches + diag_launches + analysis_launches,
+        + native_launches + diag_launches + analysis_launches
+        + bench_launches,
         "launches_by_path": {"synthesis": launches,
                              "training": train_launches,
                              "serving": serve_launches,
@@ -4067,8 +4259,9 @@ def main() -> int:
                              "vocoder_demo": demo_launches,
                              "native_host": native_launches,
                              "diagnostics": diag_launches,
-                             "analysis": analysis_launches},
-        "max_abs_err": worst,
+                             "analysis": analysis_launches,
+                             "bench": bench_launches},
+        "max_abs_err": max(worst, bench_err),
         "ms": k_ms,
         "plain_ms": p_ms,
         "bound_ms": bound_ms,

@@ -71,6 +71,14 @@ def add_device_arg(parser: argparse.ArgumentParser) -> None:
     )
 
 
+def device_label(device: torch.device) -> str:
+    """``device`` with the card's name where it is a CUDA device, so a
+    measurement names what it ran on."""
+    if device.type != "cuda":
+        return str(device)
+    return f"{device} ({torch.cuda.get_device_name(device)})"
+
+
 def add_common_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument(
         "--config", type=str, default=None,
