@@ -212,9 +212,14 @@ every kernel against its plain PyTorch version:
    B=128 × 1024 frames in bf16, the fused and public-API p50s, the
    roofline of the B=128 dispatch: ``sol_fraction`` ≤ 1),
    ``bench_batch_sweep --batches 1,8,32``, ``bench_serve`` on phase 7's
-   cut ladders (closed loop in-process, closed loop over ``--http``, and
-   ``--ab_max_batch_limit 16`` at one open-loop rate: every request
-   completed), ``bench_stream`` in f32 and ``--pcm16`` (the stream within
+   cut ladders (closed loop of 16 clients × 8 requests in-process and over
+   ``--http``, and ``--ab_max_batch_limit 16`` at 20 req/s open loop, 300
+   requests a configuration: every request completed; then what the
+   slowest requests wait for: the same closed loop twice on one batcher,
+   its text frontend cold and then warm, and each text through a fresh
+   frontend alone, the neural G2P's checkpoint load on the first
+   out-of-lexicon word),
+   ``bench_stream`` in f32 and ``--pcm16`` (the stream within
    1e-5 of the full pass's peak, one LSB), ``bench_train`` for the VAE
    step and the GAN round in f32 and ``--bf16``, and ``bench_mel`` at its
    defaults (the kernel's launches counted exactly, every output within
@@ -2914,16 +2919,17 @@ def phase15_sentence_line(card: str, sentence, busy_rows) -> None:
 
 # -- phase 16: the benchmark drivers --------------------------------------------
 
-# bench_serve on phase 7's cut ladders: the closed loop in-process and over
-# HTTP, then the fixed/adaptive A/B at one open-loop rate.
+# bench_serve on phase 7's cut ladders: the closed loop at the script's
+# default depth (16 clients x 8 requests) in-process and over HTTP, then the
+# fixed/adaptive A/B at one open-loop rate, 300 requests a configuration.
 BENCH_SERVE_LADDERS = [
     "--phoneme_buckets", ",".join(map(str, SERVE_PHONEME_BUCKETS)),
     "--frame_buckets", ",".join(map(str, SERVE_FRAME_BUCKETS))]
 BENCH_SERVE_RUNS = (
-    ["--clients", "8", "--requests", "2"],
-    ["--http", "--clients", "8", "--requests", "2"],
+    ["--clients", "16", "--requests", "8"],
+    ["--http", "--clients", "16", "--requests", "8"],
     ["--ab_max_batch_limit", "16", "--offered_qps", "20", "--requests",
-     "24"],
+     "300"],
 )
 # bench_mel at its defaults: two cases, each the kernel once for the
 # max-abs, then avg_ms's warm-up call and 30 timed calls.
@@ -2946,7 +2952,73 @@ def _check_positive(row: dict, what: str) -> None:
                   f"{what}: {k} = {v} positive")
 
 
-def phase16_bench(dev, card: str):
+def phase16_serve_tail(card: str) -> None:
+    """What ``bench_serve``'s slowest requests wait for. Each run builds a
+    fresh pipeline, whose neural G2P loads its checkpoint on the first
+    out-of-lexicon word, inside ``submit()`` on the client's thread: the
+    script's closed loop (16 × 8), twice on one batcher built as the script
+    builds it, the frontend cold and then warm, each request's text kept;
+    then that text through a fresh frontend alone, cold and warm."""
+    import numpy as np
+
+    from iris_tts_tpu_torch import IrisConfig
+    from iris_tts_tpu_torch.models.pipeline import TTSPipeline
+    from iris_tts_tpu_torch.scripts import bench_serve
+    from iris_tts_tpu_torch.serve import DynamicBatcher
+    from iris_tts_tpu_torch.text import PhonemeVocab, create_text_processor
+
+    texts = bench_serve.TEXTS
+    pipe = TTSPipeline.initialize(IrisConfig(), seed=0)
+    pipe.phoneme_buckets = SERVE_PHONEME_BUCKETS
+    pipe.frame_buckets = SERVE_FRAME_BUCKETS
+    sr = pipe.config.audio.sample_rate
+    g2p = pipe.text_processor.neural_g2p
+    check(g2p is not None, "the pipeline's frontend has the neural G2P")
+    batcher = DynamicBatcher(pipe, max_batch=8, max_wait_ms=5.0).start()
+    try:
+        for label in ("cold", "warm"):
+            reqs = []
+
+            def submit(text, timeout):
+                t0 = time.perf_counter()
+                audio = batcher.synthesize(text, timeout=timeout)
+                reqs.append((time.perf_counter() - t0, texts.index(text)))
+                return audio.shape[0] / sr
+
+            lats, _, _, wall = bench_serve.closed_loop(submit, 16, 8, 600)
+            check(len(lats) == 128, f"serve tail {label}: 128 requests")
+            ms = np.sort(np.asarray(lats)) * 1e3
+            top = sorted(reqs, reverse=True)[:7]  # the slowest 5%
+            print(f"phase 16 bench_serve tail, frontend {label}: 16 x 8 "
+                  f"closed loop on one batcher {128 / wall:.2f} req/s, "
+                  f"p50 / p95 / max {ms[64]:.2f} / {ms[121]:.2f} / "
+                  f"{ms[-1]:.2f} ms; the 7 slowest "
+                  + ", ".join(f"{t * 1e3:.0f} ms (TEXTS[{i}])"
+                              for t, i in top)
+                  + f"; neural G2P loaded {g2p._loaded} ({card})",
+                  flush=True)
+    finally:
+        batcher.stop()
+    # each text once through a fresh frontend alone, noting which reach the
+    # neural G2P (the first of them pays its checkpoint load), then again
+    tp, vocab = create_text_processor(), PhonemeVocab.default_arpabet()
+    calls = []
+    predict = tp.neural_g2p.predict_batch
+    tp.neural_g2p.predict_batch = lambda words: (calls.append(words),
+                                                 predict(words))[1]
+    rows = []
+    for when in ("first", "again"):
+        for i, text in enumerate(texts):
+            n, t0 = len(calls), time.perf_counter()
+            tp.text_to_ids(text, vocab)
+            rows.append(f"TEXTS[{i}] {when} "
+                        f"{(time.perf_counter() - t0) * 1e3:.2f} ms"
+                        + (" (G2P)" if len(calls) > n else ""))
+    print("phase 16 bench_serve tail, a fresh frontend alone: "
+          + "; ".join(rows) + f" (host clock; {card})", flush=True)
+
+
+def phase16_bench(card: str):
     """The benchmark drivers on the card (see the module docstring), each
     through its ``main(argv)`` as a user runs it, on its default device.
     Returns the log-mel launches on this path (checked: ``bench_mel``'s
@@ -3028,6 +3100,7 @@ def phase16_bench(dev, card: str):
                   f"{p['batch_size_hist']} ({card})", flush=True)
         print(f"phase 16 bench_serve run {i} in "
               f"{walls[f'bench_serve {i}']:.1f} s", flush=True)
+    timed("bench_serve tail", lambda: phase16_serve_tail(card))
 
     # (d) the streaming vocoder against the full pass
     for argv in ([], ["--pcm16"]):
@@ -3058,17 +3131,19 @@ def phase16_bench(dev, card: str):
           f"log-mel launches on the bench path: {launches} == "
           f"{BENCH_MEL_LAUNCHES}")
     cfg = AudioConfig()
+    # bench_mel's inputs at its defaults, on the card
+    d = bench_mel.build_parser().parse_args([])
+    inputs = dict(zip(("single", "batch"), bench_mel.make_inputs(
+        d.seconds, d.batch, cfg, torch.device("cuda"))))
     worst = 0.0
     for case in ("single", "batch"):
-        res, inputs = mel[case], mel["inputs"][case]
+        res = mel[case]
         check(res is not None, f"bench_mel {case} ran the kernel")
         check(res["maxabs"] <= 2e-3, f"bench_mel {case}: kernel vs xla "
                                      f"{res['maxabs']} <= 2e-3")
-        errs = [max_abs(res["kernel_out"],
-                        log_mel_spectrogram_plain(inputs[0], cfg))]
-        errs += [max_abs(mel_cuda.log_mel_cuda(a, cfg),
-                         log_mel_spectrogram_plain(a, cfg))
-                 for a in inputs]
+        errs = [max_abs(mel_cuda.log_mel_cuda(a, cfg),
+                        log_mel_spectrogram_plain(a, cfg))
+                for a in inputs[case]]
         check(max(errs) <= 2e-3, f"bench_mel {case}: kernel vs plain "
                                  f"{max(errs)} <= 2e-3")
         worst = max(worst, max(errs))
@@ -4233,8 +4308,7 @@ def main() -> int:
     phase15_sentence_line(card, sentence, busy_rows)
 
     # -- 16. the benchmark drivers (the bench path) ---------------------------
-    bench_launches, bench_err = phase16_bench(dev, card)
-    check(bench_launches >= 1, "the bench path launched the log-mel kernel")
+    bench_launches, bench_err = phase16_bench(card)
 
     jax_pkg = iris_tts_tpu_torch.__name__.removesuffix("_torch")
     kernels = [{

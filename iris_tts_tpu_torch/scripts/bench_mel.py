@@ -36,8 +36,8 @@ from iris_tts_tpu_torch.scripts.common import add_device_arg, avg_ms
 def run_case(label: str, audio_arrays: List[torch.Tensor],
              cfg: AudioConfig) -> Optional[Dict]:
     """Prints the case's line; returns ``{"xla_ms", "kernel_ms",
-    "speedup", "maxabs", "kernel_out"}`` (the kernel's log-mel of the first
-    input), or None where the inputs are not on a CUDA device."""
+    "speedup", "maxabs"}``, or None where the inputs are not on a CUDA
+    device."""
     def f_xla(a):
         return log_mel_spectrogram(a, cfg, impl="xla")
 
@@ -57,8 +57,7 @@ def run_case(label: str, audio_arrays: List[torch.Tensor],
     print(f"{label}: xla {ms_xla:8.2f} ms | cuda {ms_kernel:8.2f} ms | "
           f"speedup {ms_xla / ms_kernel:5.2f}x | maxabs {err:.2e}")
     return {"xla_ms": ms_xla, "kernel_ms": ms_kernel,
-            "speedup": ms_xla / ms_kernel, "maxabs": err,
-            "kernel_out": y_kernel}
+            "speedup": ms_xla / ms_kernel, "maxabs": err}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -92,7 +91,7 @@ def make_inputs(seconds: float, batch: int, cfg: AudioConfig,
 
 def main(argv=None) -> Dict:
     """Prints the two cases' lines; returns ``{"single": ..., "batch":
-    ...}`` (:func:`run_case`'s results) and the inputs under ``"inputs"``."""
+    ...}`` (:func:`run_case`'s results)."""
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     cfg = AudioConfig()
@@ -101,7 +100,6 @@ def main(argv=None) -> Dict:
         "single": run_case(f"single [{args.seconds:.0f}s]", singles, cfg),
         "batch": run_case(f"batch  [B={args.batch}, {args.seconds:.0f}s]",
                           batches, cfg),
-        "inputs": {"single": singles, "batch": batches},
     }
 
 

@@ -125,6 +125,11 @@ _RE_MONTH_DAY = re.compile(
 _UNICODE_MAP = {
     "‘": "'", "’": "'", "“": '"', "”": '"',
     "–": "-", "—": " - ", "…": "...", " ": " ",
+    # "İ" (U+0130) lowercases to "i" + U+0307, a combining mark that is no
+    # word character: a digit after it would be glued to the word on the
+    # first pass and read as a number on the second ("İ0" → "i̇0" →
+    # "i̇zero"). Read as "I", normalization stays idempotent.
+    "\u0130": "I",
 }
 
 
@@ -209,4 +214,7 @@ def normalize_text(text: str) -> str:
     text = _expand_dates(text)
     text = expand_numbers(text)
     text = text.lower()
-    return collapse_whitespace(text)
+    # A rule can take the space before a combining mark ("0° ́" → "zero
+    # degrees" + U+0301), which then composes with the letter it now
+    # follows on the next pass: compose it here.
+    return unicodedata.normalize("NFKC", collapse_whitespace(text))

@@ -86,7 +86,7 @@ JAX_BENCH_CPU_KEYS = {"metric", "value", "unit", "vs_baseline", "device"}
 # scripts/bench_batch_sweep.py:100-110
 JAX_SWEEP_KEYS = {"metric", "batch", "frames", "mel_frames_per_sec", "rtf",
                   "step_ms", "marginal_scaling_eff", "compile_s", "dtype"}
-# scripts/bench_train.py:487-494 and :563-570
+# scripts/bench_train.py:121-128 and :197-204
 JAX_TRAIN_KEYS = {"metric", "value", "unit", "step_ms", "batch", "dtype"}
 # scripts/bench_serve.py:334-361
 JAX_SERVE_KEYS = {"metric", "value", "unit", "mode", "transport", "batcher",
@@ -575,19 +575,22 @@ def test_bench_mel_on_the_cpu_prints_no_kernel_time(capsys):
                for ln in lines)
 
 
-def test_bench_mel_inputs_are_jaxs():
-    """Four tones plus ``default_rng(0)`` noise, each batched by rolls of
-    17·j samples (scripts/bench_mel.py:165-180)."""
-    cfg = tcfg.AudioConfig()
-    singles, batches = bench_mel.make_inputs(0.1, 3, cfg,
+def test_bench_mel_inputs_are_jaxs(monkeypatch):
+    """The inputs JAX's ``scripts/bench_mel.py`` hands its ``run_case``
+    (four tones plus ``default_rng(0)`` noise, each batched by rolls of
+    17·j samples, :52-66), captured from its ``main()``, equal
+    ``make_inputs``'s."""
+    jbench_mel = importlib.import_module("scripts.bench_mel")
+    seen = []
+    monkeypatch.setattr(jbench_mel, "run_case",
+                        lambda label, arrays, cfg: seen.append(arrays))
+    monkeypatch.setattr("sys.argv", ["bench_mel.py", "--seconds", "0.1",
+                                     "--batch", "3"])
+    jbench_mel.main()
+    singles, batches = bench_mel.make_inputs(0.1, 3, tcfg.AudioConfig(),
                                              torch.device("cpu"))
-    n = int(0.1 * cfg.sample_rate)
-    rng = np.random.default_rng(0)
-    t = np.arange(n) / cfg.sample_rate
-    for i, (s, b) in enumerate(zip(singles, batches)):
-        want = (0.4 * np.sin(2 * np.pi * (200 + 100 * i) * t)
-                + 0.05 * rng.standard_normal(n)).astype(np.float32)
-        np.testing.assert_array_equal(s.numpy(), want)
-        np.testing.assert_array_equal(
-            b.numpy(), np.stack([np.roll(want, 17 * j) for j in range(3)]))
-
+    assert len(seen) == 2
+    for got, want in zip((singles, batches), seen):
+        assert len(got) == len(want) == 4
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))

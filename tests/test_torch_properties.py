@@ -8,10 +8,11 @@ port's result on each drawn input also equals JAX's. (The native npy
 reader's property is mirrored in ``tests/test_torch_native_host.py``.)"""
 
 import functools
+import unicodedata
 
 import numpy as np
 import torch
-from hypothesis import given, settings, strategies as st
+from hypothesis import example, given, settings, strategies as st
 
 from iris_tts_tpu.data import audio_io as jaudio_io
 from iris_tts_tpu.data.textgrid import parse_textgrid as jparse_textgrid
@@ -80,6 +81,12 @@ def test_length_regulate_conservation(data):
                                   np.repeat(np.arange(P), durs))
 
 
+# Inputs on which JAX's normalize_text is not idempotent and the port's is
+# (ROADMAP §C): "İ" lowercases to "i" + a combining dot, and a rule can take
+# the space before a combining mark.
+NOT_IDEMPOTENT_IN_JAX = ("\u01300", "0\u00b0\u00b4")
+
+
 @settings(**SETTINGS)
 @given(
     text=st.text(
@@ -87,14 +94,18 @@ def test_length_regulate_conservation(data):
         max_size=60,
     )
 )
+@example(NOT_IDEMPOTENT_IN_JAX[0])
+@example(NOT_IDEMPOTENT_IN_JAX[1])
 def test_normalize_text_idempotent_and_total(text):
     """normalize_text never raises on arbitrary input, is idempotent, and
-    gives JAX's output."""
+    gives JAX's output, apart from the port's two repairs: "İ" read as
+    "I", and the result composed (NFKC) at the end."""
     from iris_tts_tpu_torch.text.normalize import normalize_text
 
     once = normalize_text(text)
     assert normalize_text(once) == once
-    assert once == jnormalize(text)
+    assert once == unicodedata.normalize(
+        "NFKC", jnormalize(text.replace("\u0130", "I")))
 
 
 @functools.cache
@@ -115,14 +126,20 @@ def _processors():
         max_size=80,
     )
 )
+@example(NOT_IDEMPOTENT_IN_JAX[0])
+@example(NOT_IDEMPOTENT_IN_JAX[1])
 def test_frontend_total_on_arbitrary_unicode(text):
     """text_to_ids is total: any unicode input yields a non-empty id list
-    within the vocab, never an exception, and JAX's ids."""
+    within the vocab, never an exception, and JAX's ids. Where the port's
+    normalization differs from JAX's (its repairs, tested above), the ids
+    are JAX's frontend's from the port's normalized text."""
     tp, vocab, jtp, jvocab = _processors()
     ids = tp.text_to_ids(text, vocab)
     assert len(ids) >= 1
     assert all(0 <= int(i) < len(vocab) for i in ids)
-    assert list(map(int, ids)) == list(map(int, jtp.text_to_ids(text,
+    norm = tp.normalize_text(text)
+    jtext = text if norm == jtp.normalize_text(text) else norm
+    assert list(map(int, ids)) == list(map(int, jtp.text_to_ids(jtext,
                                                                  jvocab)))
 
 

@@ -83,3 +83,19 @@ def test_normalization_corpus_golden():
     assert len(cases) >= 500
     failures = _golden_failures(cases)
     assert not failures, (len(failures), failures[:5])
+
+
+@pytest.mark.parametrize("src, want", [
+    ("\u01300", "i0"), ("0\u00b0\u00b4", "zero degree\u015b")])
+def test_normalization_is_idempotent_where_jaxs_is_not(src, want):
+    """Two inputs on which JAX's normalizer gives another string on a
+    second pass: "İ" lowercases to "i" + a combining dot (so "0" is a word
+    of its own the second time), and the degree rule takes the space
+    before a combining acute (which then composes with the "s"). The port
+    reads "İ" as "I" and composes its result, so one pass is final."""
+    from iris_tts_tpu.text.normalize import normalize_text as jnormalize
+    from iris_tts_tpu_torch.text.normalize import normalize_text
+
+    once = normalize_text(src)
+    assert once == want and normalize_text(once) == once
+    assert jnormalize(jnormalize(src)) != jnormalize(src)
