@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Drives the port (``iris_tts_tpu_torch``) through the entry points a user
-calls, at the full default width with seeded random weights, and holds
-every kernel against its plain PyTorch version:
+calls, at the full default width with seeded random weights (phase 17:
+the shipped trained weights, at the same widths), and holds every kernel
+against its plain PyTorch version:
 
 1. build the log-mel kernel (``iris_tts_tpu_torch/ops/csrc/log_mel.cu``)
    from the sources in this checkout;
@@ -224,18 +225,36 @@ every kernel against its plain PyTorch version:
    step and the GAN round in f32 and ``--bf16``, and ``bench_mel`` at its
    defaults (the kernel's launches counted exactly, every output within
    2e-3 of the plain version); each JSON line parsed, its rates and
-   times positive, and the phase's wall time.
+   times positive, and the phase's wall time;
+17. the shipped trained model (``release/pipeline_artifact``, the JAX
+   package's orbax directory, float16 params) through the port alone:
+   the zstd decoder built with g++ from ``convert/csrc/zstd_decode.cpp``;
+   ``convert/orbax.read_tree`` (decode and assembly seconds, MB/s) and
+   its SHA-256 equal to ``RELEASE_PARAMS_SHA256``, which a CPU test
+   computes from orbax's own restore; ``TTSPipeline.load`` onto the card
+   (seconds); ``tests/test_torch_release.py``'s four sentences at
+   temperature 0: f32 frame totals exactly 99, 65, 111 and 216, bf16
+   totals equal per phoneme away from a rounding boundary (phase 9's
+   rule), f32 audio within 1e-3 of the port's CPU run of the same load;
+   the log-mel kernel on the trained f32 audio (held against the plain
+   version) and the mean L1 between that log-mel and the model's mel,
+   beside the same L1 through phase 3's random weights;
+   ``synthesize --artifact`` in a child process (cold seconds to the wav);
+   eight concurrent requests through a ``DynamicBatcher`` over the
+   trained pipeline, warmed on the artifact's ladders (p50 and max).
 
-Fourteen paths drive the kernel, or not: synthesis (phases 3 and 4),
+Fifteen paths drive the kernel, or not: synthesis (phases 3 and 4),
 training (phase 6), serving (phase 7), AOT serving (phase 8), bf16
 (phase 9's copy synthesis), the command line (phase 10), the data-axis
 mesh (phases 11a and 11b, counted in their rank processes), the model
 axis (11c, counted in its rank processes), ``serve --mesh`` (11d,
 counted in its two rank processes, read from their logs), the demo
 vocoder (12d), the C++ host (13), the diagnostics (14), the analysis
-tools (15) and the benchmark drivers (16, where ``bench_mel`` alone
-computes log-mels); the serving paths, the model axis, the C++ host and
-the analysis tools compute no log-mel: 0 launches. Each path's
+tools (15), the benchmark drivers (16, where ``bench_mel`` alone
+computes log-mels) and the trained model (17: the four sentences and
+the same through phase 3's weights, 8 launches); the serving paths, the
+model axis, the C++ host and the analysis tools compute no log-mel: 0
+launches. Each path's
 launch counts are zeroed just before it and read just after, and a
 kernel of the path that was not launched fails the run.
 The last three lines are the card's name and power limit, a
@@ -4097,6 +4116,208 @@ def phase11_mesh(dev, card: str, cli_summary=None):
     return launches, tp_launches, serve_launches
 
 
+RELEASE_ARTIFACT = Path(__file__).resolve().parent / "release" / \
+    "pipeline_artifact"
+# SHA-256 of the artifact's decoded params tree (convert/orbax.tree_sha256);
+# tests/test_torch_orbax.py computes it from orbax's own restore.
+RELEASE_PARAMS_SHA256 = (
+    "417ba99febd91218c2a59942699a28c0ba5156c426569c887cd22c010ea28272")
+# tests/test_torch_release.py's FRAME_TOTALS: (text, f32 frames).
+RELEASE_FRAMES = (("The quick brown fox.", 99), ("Hello world.", 65),
+                  ("Good morning to you.", 111),
+                  ("The old gardener found a basket of apples.", 216))
+RELEASE_SERVE_REQUESTS = 8
+
+
+def phase17_release(dev, card: str, control) -> int:
+    """The shipped trained model, read from the JAX package's orbax
+    artifact without JAX (see the module docstring). ``control`` is phase
+    3's random-weight pipeline. Returns the log-mel launches on this path
+    (the trained and the control copy analyses, counted exactly)."""
+    import dataclasses
+    import threading
+
+    import numpy as np
+
+    from iris_tts_tpu_torch.convert import orbax, zstd
+    from iris_tts_tpu_torch.data.audio_io import read_wav
+    from iris_tts_tpu_torch.models.pipeline import TTSPipeline, stage_a
+    from iris_tts_tpu_torch.ops import mel_cuda
+    from iris_tts_tpu_torch.ops.stft import (
+        log_mel_spectrogram,
+        log_mel_spectrogram_plain,
+    )
+    from iris_tts_tpu_torch.serve import DynamicBatcher
+
+    t_phase = time.perf_counter()
+    mel_cuda.log_mel_cuda.launches = 0
+    # 1. the zstd decoder, the tree, its digest, the load onto the card
+    prebuilt = sorted(zstd.BUILD_DIR.glob("libiriszstd_*.so"))
+    t0 = time.perf_counter()
+    lib = zstd.build_library()
+    zstd.get_lib()
+    build_s = time.perf_counter() - t0
+    how = (f"found already built ({len(prebuilt)} in {zstd.BUILD_DIR})"
+           if lib in prebuilt else f"built with g++ in {build_s:.2f} s")
+    t0 = time.perf_counter()
+    tree = orbax.read_tree(RELEASE_ARTIFACT / "params")
+    decode_s = time.perf_counter() - t0
+    leaves = list(orbax.flat_leaves(tree))
+    n_bytes = sum(np.asarray(a).nbytes for _, a in leaves)
+    digest = orbax.tree_sha256(tree)
+    check(digest == RELEASE_PARAMS_SHA256,
+          f"release params SHA-256 {digest} == {RELEASE_PARAMS_SHA256}")
+    t0 = time.perf_counter()
+    pipe = TTSPipeline.load(RELEASE_ARTIFACT)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check(pipe.device.type == "cuda", "the artifact loads onto the card")
+    n_params = sum(p.numel() for p in pipe.model.parameters())
+    print(f"phase 17 release artifact: zstd decoder {lib.name} {how}; "
+          f"{len(leaves)} leaves, {n_bytes / 1e6:.2f} MB "
+          f"decoded and assembled in {decode_s:.3f} s "
+          f"({n_bytes / 1e6 / decode_s:.1f} MB/s, host); SHA-256 "
+          f"{digest[:16]}... matches; TTSPipeline.load onto the card in "
+          f"{load_s:.2f} s ({n_params / 1e6:.2f} M params; {card})",
+          flush=True)
+
+    # 2. frame totals: f32 exactly; bf16 per phoneme away from a rounding
+    # boundary (phase 9's rule)
+    texts = [t for t, _ in RELEASE_FRAMES]
+    got32 = [pipe.synthesize(t, temperature=0.0, return_mel=True)
+             for t in texts]
+    frames32 = [m.shape[0] for _, m in got32]
+    check(frames32 == [n for _, n in RELEASE_FRAMES],
+          f"f32 frame totals {frames32} == {[n for _, n in RELEASE_FRAMES]}")
+    pipe16 = dataclasses.replace(pipe, dtype=torch.bfloat16)
+    frames16 = [pipe16.synthesize(t, temperature=0.0, return_mel=True)[1]
+                .shape[0] for t in texts]
+
+    def stage_a_of(p):
+        ids, lengths = p._encode_texts(texts)
+        ids_t, len_t = p._to_device(ids, lengths)
+        with torch.inference_mode():
+            enc, frames, _ = stage_a(p.model, ids_t, len_t)
+            x = torch.exp(p.model.duration(enc).float()) - 1.0
+        return frames.cpu(), x.cpu(), lengths
+
+    fr32, x32, lengths = stage_a_of(pipe)
+    fr16, _, _ = stage_a_of(pipe16)
+    moved = []
+    for i, t in enumerate(texts):
+        n = int(lengths[i])
+        x, a, b = x32[i, :n], fr32[i, :n], fr16[i, :n]
+        check(int(a.sum()) == frames32[i], f"stage A frames of {t!r}")
+        near = ((x - x.floor()) - 0.5).abs() <= 0.05 * (1.0 + x)
+        check(bool((a == b)[~near].all()),
+              f"bf16 frames of {t!r} equal f32's away from a rounding "
+              "boundary")
+        if frames16[i] != frames32[i]:
+            moved.append(f"{t!r} {frames32[i]} -> {frames16[i]} (f32 "
+                         + ", ".join(f"{float(v):.3f}" for v in x[a != b])
+                         + ")")
+    print(f"phase 17 frame totals at temperature 0: f32 {frames32} "
+          f"(exact), bf16 {frames16}; bf16 moved "
+          + ("; ".join(moved) or "none")
+          + f", each at a rounding boundary ({card})", flush=True)
+
+    # 3. the card's f32 audio against the port's CPU run of the same load
+    cpu = TTSPipeline.load(RELEASE_ARTIFACT, device="cpu")
+    errs = []
+    for t, (a_gpu, m_gpu) in zip(texts, got32):
+        a_cpu, m_cpu = cpu.synthesize(t, temperature=0.0, return_mel=True)
+        check(m_cpu.shape == m_gpu.shape, f"card and CPU frames of {t!r}")
+        err = max_abs(a_gpu, a_cpu)
+        check(float(np.abs(a_cpu).max()) > 0.05, f"a real signal ({t!r})")
+        check(err <= 1e-3, f"card vs CPU audio of {t!r}: {err} <= 1e-3")
+        errs.append(err)
+    del cpu
+    print(f"phase 17 card vs CPU, the same load at temperature 0: audio "
+          f"max-abs {max(errs):.3e} over {len(texts)} sentences (limit "
+          f"1e-3), peaks "
+          + ", ".join(f"{float(np.abs(a).max()):.3f}" for a, _ in got32)
+          + f" ({card})", flush=True)
+
+    # 4. the log-mel kernel on the trained audio: how far the model's mel
+    # lies from the log-mel of its own audio, beside phase 3's random
+    # weights
+    cfg = pipe.config.audio
+    worst, l1 = 0.0, {}
+    for label, p in (("trained", pipe), ("random", control)):
+        dists = []
+        for i, t in enumerate(texts):
+            audio, mel = (got32[i] if p is pipe else
+                          p.synthesize(t, temperature=0.0, return_mel=True))
+            a = torch.from_numpy(audio).to(dev)
+            feats = log_mel_spectrogram(a, cfg)
+            want = log_mel_spectrogram_plain(a, cfg)
+            worst = max(worst, max_abs(feats, want))
+            n = min(feats.shape[0], mel.shape[0])
+            dists.append(float((feats[:n].cpu()
+                                - torch.from_numpy(mel[:n])).abs().mean()))
+        l1[label] = float(np.mean(dists))
+    launches = mel_cuda.log_mel_cuda.launches
+    check(launches == 2 * len(texts),
+          f"log-mel launches on the release path: {launches} == "
+          f"{2 * len(texts)}")
+    check(worst <= 2e-3, f"kernel vs plain on the release audio: {worst}")
+    print(f"phase 17 log-mel of the synthesized audio vs the model's mel, "
+          f"mean L1 over {len(texts)} sentences: trained {l1['trained']:.4f}"
+          f", phase 3's random weights {l1['random']:.4f}; kernel vs plain "
+          f"max-abs {worst:.3e}; {launches} launches ({card})", flush=True)
+
+    # 5. synthesize --artifact in a child process, from cold
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = Path(tmp) / "release.wav"
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "iris_tts_tpu_torch.scripts.synthesize",
+             "--artifact", str(RELEASE_ARTIFACT), "--text", texts[-1],
+             "--temperature", "0", "--output_wav", str(wav)],
+            capture_output=True, text=True, timeout=300)
+        child_s = time.perf_counter() - t0
+        check(r.returncode == 0, f"synthesize child: {r.stderr[-1500:]}")
+        samples, sr = read_wav(wav)
+    check(sr == cfg.sample_rate and len(samples) == len(got32[-1][0]),
+          "the child's wav has the in-process length")
+
+    # 6. eight requests through the live batcher over the trained pipeline
+    # (its warmup runs the artifact's own ladders)
+    batcher = DynamicBatcher(pipe, max_batch=8, max_wait_ms=5.0).start()
+    try:
+        batcher.synthesize(texts[0], timeout=300)  # first-call set-up
+        lats, outs = [], []
+
+        def one(text):
+            t0 = time.perf_counter()
+            out = batcher.synthesize(text, timeout=300)
+            lats.append((time.perf_counter() - t0) * 1e3)
+            outs.append(out)
+
+        threads = [threading.Thread(target=one, args=(texts[i % 4],))
+                   for i in range(RELEASE_SERVE_REQUESTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        check(not any(th.is_alive() for th in threads)
+              and len(outs) == RELEASE_SERVE_REQUESTS,
+              "every served request answered")
+        check(all(np.isfinite(o).all() and len(o) > 0 for o in outs),
+              "served audio finite")
+    finally:
+        batcher.stop()
+    print(f"phase 17 synthesize --artifact in a child process: "
+          f"{child_s:.2f} s from cold to the wav ({len(samples)} samples); "
+          f"{RELEASE_SERVE_REQUESTS} concurrent requests through the "
+          f"DynamicBatcher over the trained pipeline ({batcher.n_warmed} "
+          f"shapes of the artifact's ladders warmed in "
+          f"{batcher.warmup_s:.1f} s): p50 "
+          f"{_pct(lats, 0.5):.1f} ms, max {max(lats):.1f} ms; phase "
+          f"{time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4310,6 +4531,9 @@ def main() -> int:
     # -- 16. the benchmark drivers (the bench path) ---------------------------
     bench_launches, bench_err = phase16_bench(card)
 
+    # -- 17. the shipped trained model through the port (the release path) --
+    release_launches = phase17_release(dev, card, pipe)
+
     jax_pkg = iris_tts_tpu_torch.__name__.removesuffix("_torch")
     kernels = [{
         "name": "log_mel",
@@ -4320,7 +4544,7 @@ def main() -> int:
         + aot_launches + bf16_launches + cli_launches + mesh_launches
         + tp_launches + serve_mesh_launches + demo_launches
         + native_launches + diag_launches + analysis_launches
-        + bench_launches,
+        + bench_launches + release_launches,
         "launches_by_path": {"synthesis": launches,
                              "training": train_launches,
                              "serving": serve_launches,
@@ -4334,7 +4558,8 @@ def main() -> int:
                              "native_host": native_launches,
                              "diagnostics": diag_launches,
                              "analysis": analysis_launches,
-                             "bench": bench_launches},
+                             "bench": bench_launches,
+                             "release": release_launches},
         "max_abs_err": max(worst, bench_err),
         "ms": k_ms,
         "plain_ms": p_ms,

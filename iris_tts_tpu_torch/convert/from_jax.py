@@ -63,6 +63,8 @@ def _convert_leaf(path: Tuple[str, ...], value: np.ndarray
     *mod, leaf = path
     parent = mod[-1] if mod else ""
     in_attention = len(mod) >= 2 and mod[-2] in ATTENTION_NAMES
+    if isinstance(value, torch.Tensor):  # a bfloat16 leaf of convert/orbax
+        value = value.float().numpy()
     a = np.asarray(value)
     if leaf == "kernel":
         name = "weight"

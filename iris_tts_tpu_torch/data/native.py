@@ -20,10 +20,7 @@ Every entry point falls back to the pure-Python implementation in
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import logging
-import os
-import shutil
 import subprocess
 from pathlib import Path
 from typing import List, Optional, Tuple
@@ -32,38 +29,20 @@ import numpy as np
 
 from iris_tts_tpu_torch.data.audio_io import read_wav, resample, to_mono
 from iris_tts_tpu_torch.data.audio_io import write_wav as _write_wav_python
+from iris_tts_tpu_torch.utils.cxx import BUILD_DIR, build_shared_library
 
 logger = logging.getLogger(__name__)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "wavio.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "iris_tts_tpu_torch"
-CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared"]
 
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 
 
 def build_library() -> Path:
-    """Compile ``csrc/wavio.cpp`` with g++ (once per source hash) and
-    return the path of the shared library; raises if it cannot."""
-    key = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode()
-    ).hexdigest()[:16]
-    lib = BUILD_DIR / f"libiriswav_{key}.so"
-    if lib.exists():
-        return lib
-    cxx = os.environ.get("CXX") or shutil.which("g++")
-    if cxx is None:
-        raise RuntimeError("no C++ compiler: set CXX or put g++ on PATH")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".libiriswav_{key}.{os.getpid()}.so"
-    r = subprocess.run([cxx, *CXX_FLAGS, str(SOURCE), "-o", str(tmp)],
-                       capture_output=True, text=True, timeout=120)
-    if r.returncode != 0:
-        raise RuntimeError(
-            f"g++ failed with exit code {r.returncode}:\n{r.stderr[-4000:]}")
-    os.replace(tmp, lib)
-    return lib
+    """Compile ``csrc/wavio.cpp`` (once per source hash) and return the
+    path of the shared library; raises if it cannot."""
+    return build_shared_library(SOURCE, "libiriswav", build_dir=BUILD_DIR)
 
 
 def get_lib() -> Optional[ctypes.CDLL]:

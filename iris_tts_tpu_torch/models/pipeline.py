@@ -403,9 +403,11 @@ class TTSPipeline:
         device: DeviceLike = None,
         seed: int = 1337,
     ) -> "TTSPipeline":
-        """Assemble the inference pipeline from the training stages' port
-        checkpoints (``train/stages.py`` layout), best state first,
-        computing in ``dtype``.
+        """Assemble the inference pipeline from the training stages'
+        checkpoints, best state first, computing in ``dtype``: the port's
+        (``train/stages.py`` layout) or the JAX package's (its orbax stage
+        directories, read without JAX and mapped as :meth:`from_jax_params`
+        maps, the PostNet's batch statistics included).
 
         ``config`` defaults to the one recorded beside the VAE checkpoints.
         ``hifigan_checkpoint`` is a torch ``generator.ckpt`` run through
@@ -416,7 +418,10 @@ class TTSPipeline:
         vocoder checkpoint the generator keeps its seeded random weights.
         The vocab must be the one the encoder trained with
         (``vocab_path``: the stage's ``phoneme_vocab.json``)."""
-        from iris_tts_tpu_torch.train.checkpoint import CheckpointManager
+        from iris_tts_tpu_torch.train.checkpoint import (
+            CheckpointManager,
+            is_jax_state,
+        )
 
         if hifigan_checkpoint is not None and hifigan_gan_checkpoint:
             raise ValueError(
@@ -424,7 +429,10 @@ class TTSPipeline:
                 "hifigan_gan_checkpoint (train_hifigan stage), not both")
         vae_dir = Path(vae_checkpoint)
         if config is None:
-            config = CheckpointManager(vae_dir).load_config()
+            cfg_file = vae_dir / "config.json"
+            if not cfg_file.exists():  # the JAX package's stage scripts
+                cfg_file = vae_dir.parent / "config_vae.json"
+            config = load_config(cfg_file)
         if vocab is None:
             vocab = (PhonemeVocab.load(vocab_path) if vocab_path
                      else PhonemeVocab.default_arpabet())
@@ -441,13 +449,22 @@ class TTSPipeline:
         sd = model.state_dict()
         # Only the params of each stage are read: the optimizer state of
         # whatever schedule trained it plays no part in inference.
-        sd.update(CheckpointManager(encoder_checkpoint)
-                  .restore_best_params())
-        sd.update({f"vae.{k}": v for k, v in
-                   CheckpointManager(vae_dir).restore_best_params().items()})
+        enc = CheckpointManager(encoder_checkpoint).restore_best_raw()
+        if is_jax_state(enc):
+            sd.update(state_dict_from_jax(
+                {k: enc["params"][k] for k in ("encoder", "duration")}))
+        else:
+            sd.update(enc["params"])
+        vae = CheckpointManager(vae_dir).restore_best_raw()
+        sd.update(state_dict_from_jax({"vae": vae["params"]})
+                  if is_jax_state(vae) else
+                  {f"vae.{k}": v for k, v in vae["params"].items()})
         if postnet_checkpoint is not None:
-            sd.update({f"postnet.{k}": v for k, v in CheckpointManager(
-                postnet_checkpoint).restore_best_params().items()})
+            pn = CheckpointManager(postnet_checkpoint).restore_best_raw()
+            sd.update(state_dict_from_jax({"postnet": {
+                "params": pn["params"], "batch_stats": pn["batch_stats"]}})
+                if is_jax_state(pn) else
+                {f"postnet.{k}": v for k, v in pn["params"].items()})
         if hifigan_checkpoint is not None:
             from iris_tts_tpu_torch.convert.hifigan_torch import (
                 convert_hifigan_state_dict,
@@ -458,10 +475,14 @@ class TTSPipeline:
                 load_torch_checkpoint(hifigan_checkpoint), config.hifigan)
             sd.update({f"hifigan.{k}": v for k, v in gen.items()})
         elif hifigan_gan_checkpoint is not None:
-            gen = CheckpointManager(hifigan_gan_checkpoint
-                                    ).restore_best_raw()["gen"]
-            gen_params = gen["ema_params"] or gen["params"]
-            sd.update({f"hifigan.{k}": v for k, v in gen_params.items()})
+            raw = CheckpointManager(hifigan_gan_checkpoint).restore_best_raw()
+            if is_jax_state(raw):  # the generator's own stage directory
+                sd.update(state_dict_from_jax(
+                    {"hifigan": raw.get("ema_params") or raw["params"]}))
+            else:
+                gen = raw["gen"]
+                gen_params = gen["ema_params"] or gen["params"]
+                sd.update({f"hifigan.{k}": v for k, v in gen_params.items()})
         model.load_state_dict(sd, strict=True)
         return cls._assemble(config, model, vocab, text_processor, device,
                              postnet_checkpoint is not None, seed,
@@ -498,10 +519,9 @@ class TTSPipeline:
         f32 whatever the compute dtype, and the compute dtype is not
         stored: :meth:`load` takes it, as the JAX package's does.
 
-        The format is the port's own: this package does not read the orbax
-        directories the JAX package's ``save`` writes, and the JAX package
-        does not read these. Weights cross between the packages through
-        :meth:`from_jax_params`. A pipeline sharded over a model axis
+        The format is the port's own, which the JAX package does not read.
+        The port reads the JAX package's artifacts (orbax ``params``) as
+        well: :meth:`load` takes either. A pipeline sharded over a model axis
         writes whole tensors: every rank of the axis calls ``save`` (the
         slices are gathered), each to a path of its own or rank 0 alone
         writing."""
@@ -542,11 +562,17 @@ class TTSPipeline:
         dtype: DtypeLike = None,
         device: DeviceLike = None,
     ) -> "TTSPipeline":
-        """Load a directory written by :meth:`save` onto ``device``
-        (default: the CUDA device; raises without one), computing in
-        ``dtype`` (default float32). Raises
+        """Load a directory written by :meth:`save`, or by the JAX
+        package's ``TTSPipeline.save`` (orbax ``params``, read without JAX
+        by ``convert/orbax.py`` and mapped as :meth:`from_jax_params`
+        maps), onto ``device`` (default: the CUDA device; raises without
+        one), computing in ``dtype`` (default float32). Raises
         ``ValueError`` naming the tensor when a stored tensor is missing,
         extra, or of another shape than the config builds."""
+        from iris_tts_tpu_torch.convert.orbax import (
+            is_orbax_checkpoint,
+            read_tree,
+        )
         from iris_tts_tpu_torch.train.checkpoint import load_params
 
         path = Path(path)
@@ -557,21 +583,27 @@ class TTSPipeline:
         config, vocab, text_processor = cls._prepare(config, vocab, None,
                                                      lexicon_path)
         model = SynthesisModel(config)
-        want = model.state_dict()
-        sd = load_params(path / "params")
-        missing = sorted(set(want) - set(sd))
-        extra = sorted(set(sd) - set(want))
-        if missing or extra:
-            raise ValueError(f"params do not match the config: missing "
-                             f"{missing[:5]}, unexpected {extra[:5]}")
-        for k, v in sd.items():
-            if tuple(v.shape) != tuple(want[k].shape):
-                raise ValueError(
-                    f"params tensor {k!r} has shape {tuple(v.shape)}, the "
-                    f"config builds {tuple(want[k].shape)}")
-        if meta.get("params_dtype") == "float16":
-            sd = {k: v.float() if v.is_floating_point() else v
-                  for k, v in sd.items()}
+        if is_orbax_checkpoint(path / "params"):
+            # float16 params come back float32, as every leaf of
+            # state_dict_from_jax does; it raises naming a missing, extra
+            # or misshapen leaf.
+            sd = state_dict_from_jax(read_tree(path / "params"), model)
+        else:
+            want = model.state_dict()
+            sd = load_params(path / "params")
+            missing = sorted(set(want) - set(sd))
+            extra = sorted(set(sd) - set(want))
+            if missing or extra:
+                raise ValueError(f"params do not match the config: missing "
+                                 f"{missing[:5]}, unexpected {extra[:5]}")
+            for k, v in sd.items():
+                if tuple(v.shape) != tuple(want[k].shape):
+                    raise ValueError(
+                        f"params tensor {k!r} has shape {tuple(v.shape)}, "
+                        f"the config builds {tuple(want[k].shape)}")
+            if meta.get("params_dtype") == "float16":
+                sd = {k: v.float() if v.is_floating_point() else v
+                      for k, v in sd.items()}
         model.load_state_dict(sd, strict=True)
         pipe = cls._assemble(config, model, vocab, text_processor, device,
                              meta.get("use_postnet", True),

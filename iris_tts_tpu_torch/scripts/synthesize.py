@@ -1,9 +1,10 @@
 """Text → 22.05 kHz WAV: the main inference entry point.
 
 The pipeline comes from a deployable artifact (``--artifact``, written by
-``TTSPipeline.save`` or ``train_full_pipeline``), from seeded random
+``TTSPipeline.save`` or ``train_full_pipeline`` of this package or of the
+JAX package, such as ``release/pipeline_artifact``), from seeded random
 weights (``--random_weights``, a smoke test), or from the training stages'
-checkpoints (the port's own format), with a pretrained torch HiFiGAN
+checkpoints (either package's), with a pretrained torch HiFiGAN
 (``--hifigan_checkpoint``) or the GAN stage's generator. The waveform comes
 from the HiFiGAN generator, or from the Griffin-Lim vocoder
 (``--use_griffin_lim``, 60 iterations on the pipeline's device).
@@ -46,8 +47,9 @@ def build_parser() -> argparse.ArgumentParser:
                         default="outputs/sample.wav")
     parser.add_argument("--artifact", type=str, default=None,
                         help="deployable pipeline directory "
-                        "(TTSPipeline.save) — overrides the per-stage "
-                        "checkpoint flags")
+                        "(TTSPipeline.save, this package's or the JAX "
+                        "package's) — overrides the per-stage checkpoint "
+                        "flags")
     parser.add_argument("--config", type=str, default=None)
     parser.add_argument("--vocab_path", type=str, default=None,
                         help="phoneme_vocab.json the encoder trained with")

@@ -51,7 +51,8 @@ def main(argv=None) -> None:
                         help="artifact directory (python -m "
                         "iris_tts_tpu_torch.serve.export): no model code")
     parser.add_argument("--pipeline", type=Path,
-                        help="pipeline directory (TTSPipeline.save)")
+                        help="pipeline directory (TTSPipeline.save, this "
+                        "package's or the JAX package's)")
     parser.add_argument("--random_weights", action="store_true",
                         help="serve an untrained pipeline (smoke testing)")
     parser.add_argument("--config", type=Path, default=None,

@@ -784,7 +784,8 @@ def main(argv=None) -> None:
         "bucket as torch.export programs (serve them with python -m "
         "iris_tts_tpu_torch.serve --aot DIR).")
     parser.add_argument("--pipeline", type=Path,
-                        help="pipeline directory (TTSPipeline.save)")
+                        help="pipeline directory (TTSPipeline.save, this "
+                        "package's or the JAX package's)")
     parser.add_argument("--random_weights", action="store_true",
                         help="export an untrained pipeline (smoke testing)")
     parser.add_argument("--config", type=Path, default=None,

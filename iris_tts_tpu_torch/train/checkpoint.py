@@ -21,6 +21,16 @@ with a barrier, so the files are there for every rank when it returns.
 Every rank restores from the same files. On a model axis every rank takes
 the state's whole tensors (``TrainState.state_dict`` gathers the slices)
 and each restores its own slices from them.
+
+The JAX package's checkpoints are read too, without JAX: a stage
+directory that its orbax manager wrote (a ``<step>/default`` checkpoint
+per retained step, the best state in ``best/``) gives the same
+``restore_raw`` / ``restore_best_raw`` / ``restore_best_params`` calls, and
+:func:`load_params` takes an orbax ``params`` directory (see
+``convert/orbax.py``). They return JAX's tree with numpy leaves, which
+``convert/from_jax.py`` maps onto the port's modules. Resuming a JAX
+train state in the port is not supported: optax's optimizer state has no
+torch counterpart here.
 """
 
 from __future__ import annotations
@@ -39,6 +49,8 @@ from iris_tts_tpu_torch.config import (
     config_from_json,
     config_to_json,
 )
+from iris_tts_tpu_torch.convert.from_jax import state_dict_from_jax
+from iris_tts_tpu_torch.convert.orbax import is_orbax_checkpoint, read_tree
 from iris_tts_tpu_torch.parallel.mesh import barrier, is_primary
 from iris_tts_tpu_torch.parallel.sharding import (
     full_state_dict,
@@ -157,10 +169,19 @@ class CheckpointManager:
 
     # -- restore -------------------------------------------------------------
 
+    def _jax_step_dir(self, step: int) -> Path:
+        return self.directory / str(int(step)) / "default"
+
+    def _jax_steps(self) -> list:
+        return [int(p.name) for p in self.directory.iterdir()
+                if p.name.isdigit() and is_orbax_checkpoint(p / "default")]
+
     def all_steps(self) -> list:
-        """Retained checkpoint steps, ascending."""
-        return sorted(int(p.stem[len("step_"):])
-                      for p in self.directory.glob("step_*.pt"))
+        """Retained checkpoint steps, ascending (the port's files and the
+        JAX package's step directories)."""
+        return sorted({int(p.stem[len("step_"):])
+                       for p in self.directory.glob("step_*.pt")}
+                      | set(self._jax_steps()))
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()
@@ -169,36 +190,62 @@ class CheckpointManager:
     def restore_raw(self, step: Optional[int] = None) -> dict:
         """The saved state dict (on the CPU) without a template: keys step,
         epoch, params, opt_state, rng, frozen, ema_params, ema_decay (or
-        ``gen`` / ``disc`` for a GAN state)."""
+        ``gen`` / ``disc`` for a GAN state). A step the JAX package saved
+        gives its train state's tree with numpy leaves instead (JAX's keys,
+        ``batch_stats`` among them)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
+        if not self._path(step).exists() and is_orbax_checkpoint(
+                self._jax_step_dir(step)):
+            return read_tree(self._jax_step_dir(step))
         return _load(self._path(step))
 
     def restore_best_raw(self) -> dict:
         best = self.directory / "best.pt"
-        return _load(best) if best.exists() else self.restore_raw()
+        if best.exists():
+            return _load(best)
+        if is_orbax_checkpoint(self.directory / "best"):
+            return read_tree(self.directory / "best")
+        return self.restore_raw()
 
     def restore_best_params(self) -> dict:
-        """The trained ``params`` state dict of the best (or latest)
-        checkpoint, with no optimizer coupling."""
+        """The trained ``params`` of the best (or latest) checkpoint, with
+        no optimizer coupling: a state dict, or JAX's params tree with
+        numpy leaves for a JAX checkpoint."""
         return self.restore_best_raw()["params"]
 
     def restore(self, state_template: Any, step: Optional[int] = None) -> Any:
         """Restore into ``state_template`` (same structure) in place,
         bit-exact."""
-        return state_template.load_state_dict(self.restore_raw(step))
+        raw = self._port_state(self.restore_raw(step))
+        return state_template.load_state_dict(raw)
 
     def restore_best(self, state_template: Any) -> Any:
         """Restore the best checkpoint (the latest if none is marked best)
         into ``state_template`` in place, bit-exact."""
-        return state_template.load_state_dict(self.restore_best_raw())
+        raw = self._port_state(self.restore_best_raw())
+        return state_template.load_state_dict(raw)
+
+    def _port_state(self, raw: dict) -> dict:
+        if is_jax_state(raw):
+            raise ValueError(
+                f"{self.directory} holds a JAX train state: resuming it in "
+                "the port is not supported (optax's optimizer state has no "
+                "torch counterpart); restore_raw gives its params")
+        return raw
 
     def load_config(self) -> IrisConfig:
         return config_from_json((self.directory / "config.json").read_text())
 
     def close(self) -> None:
         """Nothing to release: saves are synchronous and hold no handle."""
+
+
+def is_jax_state(raw: dict) -> bool:
+    """Whether a raw restore came from the JAX package, whose train states
+    always carry ``batch_stats`` (the port keeps them inside ``params``)."""
+    return "batch_stats" in raw
 
 
 # ---------------------------------------------------------------------------
@@ -215,8 +262,17 @@ def save_params(path: str | Path, params: nn.Module | dict) -> None:
 
 
 def load_params(path: str | Path, template: Optional[nn.Module] = None):
-    """The saved state dict, or ``template`` with it loaded (strict)."""
-    sd = _load(Path(path).absolute())
+    """The saved state dict, or ``template`` with it loaded (strict). An
+    orbax ``params`` directory of the JAX package gives its tree with numpy
+    leaves, which a ``template`` takes through ``state_dict_from_jax``."""
+    path = Path(path).absolute()
+    if is_orbax_checkpoint(path):
+        tree = read_tree(path)
+        if template is None:
+            return tree
+        load_full_state_dict(template, state_dict_from_jax(tree, template))
+        return template
+    sd = _load(path)
     if template is None:
         return sd
     load_full_state_dict(template, sd)

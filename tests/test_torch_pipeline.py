@@ -181,7 +181,9 @@ def test_seeded_prior_is_reproducible(pipes):
 
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, load without jax, flax,
-    optax, orbax or the JAX package."""
+    optax, orbax, tensorstore, zstandard or the JAX package; the orbax
+    reader (``convert.zstd``, ``convert.ocdbt``, ``convert.orbax``) among
+    them."""
     code = (
         "import sys, runpy, importlib, pkgutil\n"
         "import iris_tts_tpu_torch\n"
@@ -195,7 +197,8 @@ def test_port_imports_no_jax():
         "'convert.keras_h5', 'convert.torch_oracle', 'data.native', "
         "'scripts.train_g2p', 'scripts.import_keras_checkpoint', "
         "'scripts.verify_reference_artifacts', "
-        "'scripts.hifigan_integration', 'scripts.demo_vocoder']\n"
+        "'scripts.hifigan_integration', 'scripts.demo_vocoder', "
+        "'convert.zstd', 'convert.ocdbt', 'convert.orbax']\n"
         "assert all('iris_tts_tpu_torch.' + m in mods for m in new), mods\n"
         "[importlib.import_module(m) for m in mods]\n"
         "runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
@@ -232,7 +235,8 @@ def test_port_imports_no_jax():
         "st, m = make_vae_train_step(cfg, compute_dtype=torch.bfloat16, "
         "remat=True)(st, b, torch.tensor(0.01))\n"
         "assert torch.isfinite(m['total']), m\n"
-        "roots = ('jax', 'flax', 'optax', 'orbax', 'iris_tts_tpu')\n"
+        "roots = ('jax', 'flax', 'optax', 'orbax', 'iris_tts_tpu', "
+        "'tensorstore', 'zstandard')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in roots]\n"
         "assert not bad, bad\n"
     )

@@ -2,8 +2,10 @@
 pipeline_artifact``), against the JAX package on the CPU.
 
 The artifact is an orbax checkpoint (float16 params, a ``flow_prior``
-VAE): JAX's ``TTSPipeline.load`` reads it once for the module, and
-``TTSPipeline.from_jax_params`` carries the params into the port.
+VAE): JAX's ``TTSPipeline.load`` reads it once for the module, and the
+port's own ``TTSPipeline.load`` reads it without JAX
+(``convert/orbax.py``), its state dict bitwise ``from_jax_params`` of
+JAX's load.
 
 * f32: fused and two-stage ``synthesize`` at temperature 0 match JAX with
   ``tests/test_torch_pipeline.py``'s tolerance (max-abs ≤ 1e-3, equal
@@ -56,13 +58,28 @@ FRAME_TOTALS = [
 @pytest.fixture(scope="module")
 def pipes():
     jpipe = JPipeline.load(ARTIFACT)
-    pipe = TTSPipeline.from_jax_params(
-        numpy_tree(jpipe.params), port_config(jpipe.config), device="cpu",
-        vocab=PhonemeVocab.load(ARTIFACT / "vocab.json"))
-    pipe = dataclasses.replace(pipe, phoneme_buckets=jpipe.phoneme_buckets,
-                               frame_buckets=jpipe.frame_buckets)
+    pipe = TTSPipeline.load(ARTIFACT, device="cpu")
     return {"jax": (jpipe, dataclasses.replace(jpipe, dtype=jnp.bfloat16)),
             "port": (pipe, dataclasses.replace(pipe, dtype=torch.bfloat16))}
+
+
+def test_port_load_equals_from_jax_params(pipes):
+    """The port's ``load`` of the artifact: the state dict of
+    ``from_jax_params`` on JAX's load, bitwise, and JAX's options."""
+    jpipe, _ = pipes["jax"]
+    pipe, _ = pipes["port"]
+    ref = TTSPipeline.from_jax_params(
+        numpy_tree(jpipe.params), port_config(jpipe.config), device="cpu",
+        vocab=PhonemeVocab.load(ARTIFACT / "vocab.json"))
+    got, want = pipe.model.state_dict(), ref.model.state_dict()
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
+    assert (pipe.phoneme_buckets, pipe.frame_buckets) == (
+        tuple(jpipe.phoneme_buckets), tuple(jpipe.frame_buckets))
+    assert (pipe.use_postnet, pipe.upsample, pipe.seed) == (
+        jpipe.use_postnet, jpipe.upsample, jpipe.seed)
+    assert pipe.fused_frames_per_phoneme == jpipe.fused_frames_per_phoneme
 
 
 def _jax_stage_a(jpipe, text):
