@@ -241,7 +241,7 @@ against its plain PyTorch version:
    beside the same L1 through phase 3's random weights;
    ``synthesize --artifact`` in a child process (cold seconds to the wav);
    eight concurrent requests through a ``DynamicBatcher`` over the
-   trained pipeline, warmed on the artifact's ladders (p50 and max).
+   trained pipeline, warmed on phase 7's cut ladders (p50 and max).
 
 Fifteen paths drive the kernel, or not: synthesis (phases 3 and 4),
 training (phase 6), serving (phase 7), AOT serving (phase 8), bf16
@@ -1468,6 +1468,38 @@ def _tensor_core_share(rows) -> str:
             f"{len(bf)} bf16-named kernels (largest: {top})")
 
 
+def stage_a_frames(p, texts):
+    """Stage A of pipeline ``p`` on ``texts`` → (encoder output, integer
+    frames per phoneme, x = exp(log-duration) - 1 in f32, lengths); the
+    frames are round(x) clipped, as the pipeline sets them."""
+    from iris_tts_tpu_torch.models.pipeline import stage_a
+
+    ids, lengths = p._encode_texts(texts)
+    ids_t, len_t = p._to_device(ids, lengths)
+    with torch.inference_mode():
+        enc, frames, _ = stage_a(p.model, ids_t, len_t)
+        x = torch.exp(p.model.duration(enc).float()) - 1.0
+    return enc, frames, x, lengths
+
+
+def bf16_frames_moved(texts, lengths, x32, fr32, fr16) -> list:
+    """bf16 against f32 frames per phoneme (``stage_a_frames`` of each). A
+    bf16 log-duration one rounding step off can move a frame where the f32
+    value x sits near a .5 boundary: the frames must agree for every
+    phoneme clear of one (checked). → per text, the f32 x of the phonemes
+    whose frames moved."""
+    moved = []
+    for i, t in enumerate(texts):
+        n = int(lengths[i])
+        x, a, b = x32[i, :n].cpu(), fr32[i, :n].cpu(), fr16[i, :n].cpu()
+        near = ((x - x.floor()) - 0.5).abs() <= 0.05 * (1.0 + x)
+        check(bool((a == b)[~near].all()),
+              f"bf16 frames of {t!r} equal f32's away from a rounding "
+              "boundary")
+        moved.append(x[a != b])
+    return moved
+
+
 def phase9_bf16(dev, card: str, pipe, handoff) -> int:
     """bf16 and remat on the card (see the module docstring): synthesis in
     bf16 against f32 under the JAX package's gate with both timed,
@@ -1484,11 +1516,7 @@ def phase9_bf16(dev, card: str, pipe, handoff) -> int:
     )
     from iris_tts_tpu_torch.models.hifigan import HiFiGANGenerator
     from iris_tts_tpu_torch.models.layers import init_params
-    from iris_tts_tpu_torch.models.pipeline import (
-        fused_synthesis,
-        pick_bucket,
-        stage_a,
-    )
+    from iris_tts_tpu_torch.models.pipeline import fused_synthesis, pick_bucket
     from iris_tts_tpu_torch.models.vae import TextConditionedVAE
     from iris_tts_tpu_torch.ops.length import round_up_to_multiple
     from iris_tts_tpu_torch.ops import mel_cuda
@@ -1507,19 +1535,9 @@ def phase9_bf16(dev, card: str, pipe, handoff) -> int:
     check(all(p.dtype == torch.float32 for p in pipe16.model.parameters()),
           "a bf16 pipeline keeps f32 params")
 
-    # 1. synthesis: bf16 against f32 under JAX's gate, temperature 0. A
-    # bf16 log-duration one rounding step off can move a frame where the
-    # f32 value sits near a .5 boundary (round(exp(p) - 1)): frame counts
-    # must agree for every phoneme clear of one, and a flipped text is
-    # held to the gate on f32's integer frames (stage B).
-    def stage_a_of(p, texts):
-        ids, lengths = p._encode_texts(texts)
-        ids_t, len_t = p._to_device(ids, lengths)
-        with torch.inference_mode():
-            enc, frames, _ = stage_a(p.model, ids_t, len_t)
-            x = torch.exp(p.model.duration(enc).float()) - 1.0
-        return enc, frames, x, lengths
-
+    # 1. synthesis: bf16 against f32 under JAX's gate, temperature 0;
+    # frame counts under stage_a_frames / bf16_frames_moved's rule, and a
+    # flipped text held to the gate on f32's integer frames (stage B).
     def gate(label, n, x32, x16, y32, y16):
         d_mel = np.abs(y32 - y16)
         d_audio = float(np.abs(x32 - x16).max())
@@ -1540,25 +1558,18 @@ def phase9_bf16(dev, card: str, pipe, handoff) -> int:
                                    return_mel=True, fused=fused)
         a16, m16 = pipe16.synthesize(texts, seed=1, temperature=0.0,
                                      return_mel=True, fused=fused)
-        enc32, fr32, x32, lengths = stage_a_of(pipe, texts)
-        enc16, fr16, _, _ = stage_a_of(pipe16, texts)
+        enc32, fr32, x32, lengths = stage_a_frames(pipe, texts)
+        enc16, fr16, _, _ = stage_a_frames(pipe16, texts)
+        moved = bf16_frames_moved(texts, lengths, x32, fr32, fr16)
         for i, t in enumerate(texts):
-            n = int(lengths[i])
-            x, f32_, f16_ = (x32[i, :n].cpu(), fr32[i, :n].cpu(),
-                             fr16[i, :n].cpu())
-            near = ((x - x.floor()) - 0.5).abs() <= 0.05 * (1.0 + x)
-            check(bool((f32_ == f16_)[~near].all()),
-                  f"bf16 frames of {t!r} equal f32's away from a rounding "
-                  f"boundary")
             if m32[i].shape == m16[i].shape:
                 gaps.append(gate(label, m16[i].shape[0], a32[i], a16[i],
                                  m32[i], m16[i]))
                 continue
             flips.append(f"{t!r} {m32[i].shape[0]} -> {m16[i].shape[0]} "
-                         f"frames ({int((f32_ != f16_).sum())} phoneme(s), "
-                         f"f32 value(s) "
-                         + ", ".join(f"{float(v):.3f}"
-                                     for v in x[f32_ != f16_]) + ")")
+                         f"frames ({len(moved[i])} phoneme(s), f32 value(s) "
+                         + ", ".join(f"{float(v):.3f}" for v in moved[i])
+                         + ")")
             total = int(fr32[i].sum())
             t_bucket = pick_bucket(round_up_to_multiple(max(total, factor),
                                                         factor),
@@ -2201,13 +2212,14 @@ def phase12_native(card: str, root: Path) -> None:
     import numpy as np
 
     from iris_tts_tpu_torch.data import audio_io, native
+    from iris_tts_tpu_torch.utils import cxx
 
-    prebuilt = sorted(native.BUILD_DIR.glob("libiriswav_*.so"))
+    prebuilt = sorted(cxx.BUILD_DIR.glob("libiriswav_*.so"))
     t0 = time.perf_counter()
     lib = native.build_library()
     build_s = time.perf_counter() - t0
     check(native.native_available(), "native WAV library loads")
-    how = (f"found already built ({len(prebuilt)} in {native.BUILD_DIR})"
+    how = (f"found already built ({len(prebuilt)} in {cxx.BUILD_DIR})"
            if lib in prebuilt else f"built with g++ in {build_s:.2f} s")
     rng = np.random.default_rng(0)
     paths = []
@@ -3691,8 +3703,9 @@ def _rank_11c(dev, rank: int, workdir: Path) -> dict:
     mel = np.random.default_rng(7).standard_normal((700, 80)).astype(
         np.float32)
 
-    def timed(fn, reps=3):
-        fn()
+    def timed(fn, reps=3, warm=True):
+        if warm:
+            fn()
         times = []
         for _ in range(reps):
             torch.cuda.synchronize()
@@ -3748,10 +3761,11 @@ def _rank_11c(dev, rank: int, workdir: Path) -> dict:
         worst[name] = err
 
     # a batch of 8 takes seconds on the model axis here (each gather crosses
-    # the host): one timed call after the warm one
-    got_b, tp_b_ms = timed(staged, reps=1)
+    # the host): one timed call, with no warm one before it (the script's
+    # time limit), so it carries the sharded shapes' first-call set-up
+    got_b, tp_b_ms = timed(staged, reps=1, warm=False)
     rows("use_mesh two-stage", got_b, want_b)
-    got_f, tp_f_ms = timed(fused, reps=1)
+    got_f, tp_f_ms = timed(fused, reps=1, warm=False)
     rows("use_mesh fused", got_f, want_f)
     got_s, tp_s_ms = timed(sentence)
     rows("use_mesh fused sentence", [got_s], [want_s])
@@ -3767,9 +3781,10 @@ def _rank_11c(dev, rank: int, workdir: Path) -> dict:
           f"{len(MESH_TEXTS)} sentences (temperature 0.667) and "
           f"vocode_sharded of 700 frames vs one process: worst "
           + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
-          + f" of the peak; ms (host walls after a warm call: one process "
-          f"median of 3; the model axis one call for a batch, median of 3 "
-          f"for the sentence), one process / tensor-parallel rank: "
+          + f" of the peak; ms (host walls: one process median of 3 after "
+          f"a warm call; the model axis one first call for a batch, median "
+          f"of 3 after a warm call for the sentence), one process / "
+          f"tensor-parallel rank: "
           f"two-stage batch of 8 {one_b_ms:.1f} / "
           f"{tp_b_ms:.1f}, fused batch of 8 {one_f_ms:.1f} / {tp_f_ms:.1f},"
           f" fused sentence {one_s_ms:.1f} / {tp_s_ms:.1f} ({card})",
@@ -4129,11 +4144,12 @@ RELEASE_FRAMES = (("The quick brown fox.", 99), ("Hello world.", 65),
 RELEASE_SERVE_REQUESTS = 8
 
 
-def phase17_release(dev, card: str, control) -> int:
+def phase17_release(dev, card: str, control):
     """The shipped trained model, read from the JAX package's orbax
     artifact without JAX (see the module docstring). ``control`` is phase
     3's random-weight pipeline. Returns the log-mel launches on this path
-    (the trained and the control copy analyses, counted exactly)."""
+    (the trained and the control copy analyses, counted exactly) and the
+    worst kernel-vs-plain max-abs on its audio."""
     import dataclasses
     import threading
 
@@ -4141,23 +4157,24 @@ def phase17_release(dev, card: str, control) -> int:
 
     from iris_tts_tpu_torch.convert import orbax, zstd
     from iris_tts_tpu_torch.data.audio_io import read_wav
-    from iris_tts_tpu_torch.models.pipeline import TTSPipeline, stage_a
+    from iris_tts_tpu_torch.models.pipeline import TTSPipeline
     from iris_tts_tpu_torch.ops import mel_cuda
     from iris_tts_tpu_torch.ops.stft import (
         log_mel_spectrogram,
         log_mel_spectrogram_plain,
     )
     from iris_tts_tpu_torch.serve import DynamicBatcher
+    from iris_tts_tpu_torch.utils import cxx
 
     t_phase = time.perf_counter()
     mel_cuda.log_mel_cuda.launches = 0
     # 1. the zstd decoder, the tree, its digest, the load onto the card
-    prebuilt = sorted(zstd.BUILD_DIR.glob("libiriszstd_*.so"))
+    prebuilt = sorted(cxx.BUILD_DIR.glob("libiriszstd_*.so"))
     t0 = time.perf_counter()
     lib = zstd.build_library()
     zstd.get_lib()
     build_s = time.perf_counter() - t0
-    how = (f"found already built ({len(prebuilt)} in {zstd.BUILD_DIR})"
+    how = (f"found already built ({len(prebuilt)} in {cxx.BUILD_DIR})"
            if lib in prebuilt else f"built with g++ in {build_s:.2f} s")
     t0 = time.perf_counter()
     tree = orbax.read_tree(RELEASE_ARTIFACT / "params")
@@ -4193,32 +4210,18 @@ def phase17_release(dev, card: str, control) -> int:
     frames16 = [pipe16.synthesize(t, temperature=0.0, return_mel=True)[1]
                 .shape[0] for t in texts]
 
-    def stage_a_of(p):
-        ids, lengths = p._encode_texts(texts)
-        ids_t, len_t = p._to_device(ids, lengths)
-        with torch.inference_mode():
-            enc, frames, _ = stage_a(p.model, ids_t, len_t)
-            x = torch.exp(p.model.duration(enc).float()) - 1.0
-        return frames.cpu(), x.cpu(), lengths
-
-    fr32, x32, lengths = stage_a_of(pipe)
-    fr16, _, _ = stage_a_of(pipe16)
-    moved = []
+    _, fr32, x32, lengths = stage_a_frames(pipe, texts)
+    _, fr16, _, _ = stage_a_frames(pipe16, texts)
+    moved = bf16_frames_moved(texts, lengths, x32, fr32, fr16)
     for i, t in enumerate(texts):
-        n = int(lengths[i])
-        x, a, b = x32[i, :n], fr32[i, :n], fr16[i, :n]
-        check(int(a.sum()) == frames32[i], f"stage A frames of {t!r}")
-        near = ((x - x.floor()) - 0.5).abs() <= 0.05 * (1.0 + x)
-        check(bool((a == b)[~near].all()),
-              f"bf16 frames of {t!r} equal f32's away from a rounding "
-              "boundary")
-        if frames16[i] != frames32[i]:
-            moved.append(f"{t!r} {frames32[i]} -> {frames16[i]} (f32 "
-                         + ", ".join(f"{float(v):.3f}" for v in x[a != b])
-                         + ")")
+        check(int(fr32[i, :int(lengths[i])].sum()) == frames32[i],
+              f"stage A frames of {t!r}")
     print(f"phase 17 frame totals at temperature 0: f32 {frames32} "
           f"(exact), bf16 {frames16}; bf16 moved "
-          + ("; ".join(moved) or "none")
+          + ("; ".join(f"{t!r} {frames32[i]} -> {frames16[i]} (f32 "
+                       + ", ".join(f"{float(v):.3f}" for v in moved[i])
+                       + ")" for i, t in enumerate(texts)
+                       if frames16[i] != frames32[i]) or "none")
           + f", each at a rounding boundary ({card})", flush=True)
 
     # 3. the card's f32 audio against the port's CPU run of the same load
@@ -4281,8 +4284,11 @@ def phase17_release(dev, card: str, control) -> int:
     check(sr == cfg.sample_rate and len(samples) == len(got32[-1][0]),
           "the child's wav has the in-process length")
 
-    # 6. eight requests through the live batcher over the trained pipeline
-    # (its warmup runs the artifact's own ladders)
+    # 6. eight requests through the live batcher over the trained pipeline,
+    # on phase 7's cut ladders: they hold every shape of the four texts,
+    # and warming the artifact's own ladders would double the phase
+    pipe.phoneme_buckets = SERVE_PHONEME_BUCKETS
+    pipe.frame_buckets = SERVE_FRAME_BUCKETS
     batcher = DynamicBatcher(pipe, max_batch=8, max_wait_ms=5.0).start()
     try:
         batcher.synthesize(texts[0], timeout=300)  # first-call set-up
@@ -4311,11 +4317,11 @@ def phase17_release(dev, card: str, control) -> int:
           f"{child_s:.2f} s from cold to the wav ({len(samples)} samples); "
           f"{RELEASE_SERVE_REQUESTS} concurrent requests through the "
           f"DynamicBatcher over the trained pipeline ({batcher.n_warmed} "
-          f"shapes of the artifact's ladders warmed in "
+          f"shapes of phase 7's cut ladders warmed in "
           f"{batcher.warmup_s:.1f} s): p50 "
           f"{_pct(lats, 0.5):.1f} ms, max {max(lats):.1f} ms; phase "
           f"{time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
-    return launches
+    return launches, worst
 
 
 def main() -> int:
@@ -4532,7 +4538,7 @@ def main() -> int:
     bench_launches, bench_err = phase16_bench(card)
 
     # -- 17. the shipped trained model through the port (the release path) --
-    release_launches = phase17_release(dev, card, pipe)
+    release_launches, release_err = phase17_release(dev, card, pipe)
 
     jax_pkg = iris_tts_tpu_torch.__name__.removesuffix("_torch")
     kernels = [{
@@ -4560,7 +4566,7 @@ def main() -> int:
                              "analysis": analysis_launches,
                              "bench": bench_launches,
                              "release": release_launches},
-        "max_abs_err": max(worst, bench_err),
+        "max_abs_err": max(worst, bench_err, release_err),
         "ms": k_ms,
         "plain_ms": p_ms,
         "bound_ms": bound_ms,

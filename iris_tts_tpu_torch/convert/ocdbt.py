@@ -3,9 +3,9 @@
 Orbax writes a checkpoint's arrays into such a store: ``manifest.ocdbt``
 at the database's root, B-tree nodes and out-of-line values in data files
 under it (``d/…``, ``ocdbt.process_0/d/…``). This reader takes the latest
-version (or an older generation, through the version tree's nodes) and
-needs neither tensorstore nor the ``zstandard`` package: compressed nodes
-go through the port's own decoder (:mod:`.zstd`).
+version, which tensorstore always keeps inline in the manifest, and needs
+neither tensorstore nor the ``zstandard`` package: compressed nodes go
+through the port's own decoder (:mod:`.zstd`).
 
 Every encoded file or node is ``magic`` (u32, big-endian), its total
 ``length`` (u64), a ``version`` and a ``compression`` varint (0 none,
@@ -15,10 +15,10 @@ column by column:
 
 * manifest: the config (uuid, manifest kind, value and node limits, the
   version tree's arity, the compression), then, for a single-file
-  manifest, the version tree's newest leaf entries inline and references
-  to version-tree nodes holding the older ones. A numbered manifest keeps
-  the config in ``manifest.ocdbt`` and each version tree in
-  ``manifest.<generation as 16 hex digits>``;
+  manifest, the version tree's newest leaf entries inline (references to
+  version-tree nodes, which hold only older versions, follow and are not
+  read). A numbered manifest keeps the config in ``manifest.ocdbt`` and
+  each version tree in ``manifest.<generation as 16 hex digits>``;
 * data file table: paths by prefix compression against the previous path,
   each a base path and a path relative to it, both under the database's
   root;
@@ -40,7 +40,6 @@ from typing import Dict, List, Optional, Tuple, Union
 from iris_tts_tpu_torch.convert import zstd
 
 MANIFEST_MAGIC = 0x0CDB3A2A
-VERSION_NODE_MAGIC = 0x0CDB1234
 BTREE_NODE_MAGIC = 0x0CDB20DE
 _MISSING = (1 << 64) - 1
 _HEADER = 4 + 8
@@ -159,17 +158,6 @@ class _Root:
     ref: Optional[_Ref]  # None: the version's tree is empty
 
 
-@dataclass(frozen=True)
-class _VersionNodeRef:
-    generation: int  # the newest generation below it
-    count: int  # how many generations lie below it
-    ref: _Ref
-    height: int
-
-    def covers(self, generation: int) -> bool:
-        return self.generation - self.count < generation <= self.generation
-
-
 def _version_leaf_entries(c: _Cursor, files: List[str]) -> List[_Root]:
     n = c.varint()
     gens = c.varints(n)
@@ -190,26 +178,6 @@ def _version_leaf_entries(c: _Cursor, files: List[str]) -> List[_Root]:
     return out
 
 
-def _version_node_refs(c: _Cursor, files: List[str], height: Optional[int]
-                       ) -> List[_VersionNodeRef]:
-    """References to version-tree nodes; ``height`` None: each carries its
-    own (as the manifest stores them), else all are at ``height``."""
-    n = c.varint()
-    gens = c.varints(n)
-    fids, offs, lens = c.varints(n), c.varints(n), c.varints(n)
-    counts = c.varints(n)
-    c.u64s(n)  # commit times
-    heights = list(c.raw(n)) if height is None else [height] * n
-    out = []
-    for i in range(n):
-        if fids[i] >= len(files):
-            raise OcdbtError(f"{c.what}: data file id out of range")
-        out.append(_VersionNodeRef(gens[i], counts[i],
-                                   _Ref(files[fids[i]], offs[i], lens[i]),
-                                   heights[i]))
-    return out
-
-
 @dataclass
 class _Leaf:
     keys: List[bytes]  # full keys, ascending
@@ -224,13 +192,10 @@ class _Interior:
 
 
 class OcdbtReader:
-    """One version of the OCDBT database under ``path`` (the latest, or
-    the commit ``generation``): :meth:`list` its keys, :meth:`read` a
-    value. The manifest holds the newest versions inline; older ones are
-    found through the version tree's nodes."""
+    """The latest version of the OCDBT database under ``path``:
+    :meth:`list` its keys, :meth:`read` a value."""
 
-    def __init__(self, path: Union[str, Path],
-                 generation: Optional[int] = None):
+    def __init__(self, path: Union[str, Path]):
         self.path = Path(path)
         self._nodes: Dict[Tuple[_Ref, bytes], Union[_Leaf, _Interior]] = {}
         manifest = self.path / "manifest.ocdbt"
@@ -245,9 +210,9 @@ class OcdbtReader:
             self._config(c)
         elif kind != 0:
             raise OcdbtError(f"{manifest}: manifest kind {kind} not supported")
-        self.root = self._find_root(c, generation)
+        self.root = self._latest_root(c)
 
-    # -- manifest and version tree ------------------------------------------
+    # -- manifest -------------------------------------------------------------
 
     @staticmethod
     def _config(c: _Cursor) -> int:
@@ -279,37 +244,12 @@ class OcdbtReader:
         return _Cursor(decode_encoded(p.read_bytes(), MANIFEST_MAGIC, str(p)),
                        str(p))
 
-    def _find_root(self, c: _Cursor, generation: Optional[int]) -> _Root:
-        files = _data_file_table(c)
-        versions = _version_leaf_entries(c, files)
-        nodes = _version_node_refs(c, files, None)
-        c.end()
+    @staticmethod
+    def _latest_root(c: _Cursor) -> _Root:
+        versions = _version_leaf_entries(c, _data_file_table(c))
         if not versions:
-            raise OcdbtError(f"{c.what}: no version")
-        if generation is None:
-            return max(versions, key=lambda v: v.generation)
-        while True:
-            for v in versions:
-                if v.generation == generation:
-                    return v
-            below = [n for n in nodes if n.covers(generation)]
-            if not below:
-                raise KeyError(f"{self.path}: no generation {generation}")
-            node = below[0]
-            c = _Cursor(self._read_encoded(node.ref, VERSION_NODE_MAGIC),
-                        f"{self.path}: version node {node.ref}")
-            c.raw(1)  # the version tree's arity
-            height = c.raw(1)[0]
-            if height != node.height:
-                raise OcdbtError(f"{c.what}: height {height}, its parent "
-                                 f"says {node.height}")
-            files = _data_file_table(c)
-            if height == 0:
-                versions, nodes = _version_leaf_entries(c, files), []
-            else:
-                versions, nodes = [], _version_node_refs(c, files,
-                                                         height - 1)
-            c.end()
+            raise OcdbtError(f"{c.what}: no version inline")
+        return max(versions, key=lambda v: v.generation)
 
     # -- B-tree ---------------------------------------------------------------
 

@@ -15,7 +15,7 @@ import threading
 from pathlib import Path
 from typing import Optional
 
-from iris_tts_tpu_torch.utils.cxx import BUILD_DIR, build_shared_library
+from iris_tts_tpu_torch.utils.cxx import build_shared_library
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "zstd_decode.cpp"
 _NO_LIMIT = (1 << 64) - 1
@@ -28,7 +28,7 @@ _lock = threading.Lock()
 def build_library() -> Path:
     """Compile ``csrc/zstd_decode.cpp`` (once per source hash) and return
     the path of the shared library; raises ``RuntimeError`` if it cannot."""
-    return build_shared_library(SOURCE, "libiriszstd", build_dir=BUILD_DIR)
+    return build_shared_library(SOURCE, "libiriszstd")
 
 
 def get_lib() -> ctypes.CDLL:

@@ -29,7 +29,7 @@ import numpy as np
 
 from iris_tts_tpu_torch.data.audio_io import read_wav, resample, to_mono
 from iris_tts_tpu_torch.data.audio_io import write_wav as _write_wav_python
-from iris_tts_tpu_torch.utils.cxx import BUILD_DIR, build_shared_library
+from iris_tts_tpu_torch.utils.cxx import build_shared_library
 
 logger = logging.getLogger(__name__)
 
@@ -42,7 +42,7 @@ _tried = False
 def build_library() -> Path:
     """Compile ``csrc/wavio.cpp`` (once per source hash) and return the
     path of the shared library; raises if it cannot."""
-    return build_shared_library(SOURCE, "libiriswav", build_dir=BUILD_DIR)
+    return build_shared_library(SOURCE, "libiriswav")
 
 
 def get_lib() -> Optional[ctypes.CDLL]:

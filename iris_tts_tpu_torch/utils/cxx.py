@@ -2,9 +2,10 @@
 
 The port's host libraries (the WAV codec in ``data/csrc``, the zstd
 decoder in ``convert/csrc``) are compiled with ``$CXX`` (default ``g++``)
-into ``build/iris_tts_tpu_torch/`` beside the package, once per hash of the
-source and flags. A build writes a pid-suffixed file that is then renamed,
-so concurrent processes never load a half-written library.
+into ``build/iris_tts_tpu_torch/`` (:data:`BUILD_DIR`) beside the package,
+once per hash of the source and flags. A build writes a pid-suffixed file
+that is then renamed, so concurrent processes never load a half-written
+library.
 """
 
 from __future__ import annotations
@@ -14,31 +15,28 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Sequence
 
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "iris_tts_tpu_torch"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared")
 
 
-def build_shared_library(source: Path, stem: str,
-                         flags: Sequence[str] = CXX_FLAGS,
-                         build_dir: Path = BUILD_DIR) -> Path:
+def build_shared_library(source: Path, stem: str) -> Path:
     """Compile ``source`` (once per source hash) and return the path of
-    ``build_dir/<stem>_<hash>.so``; raises ``RuntimeError`` naming the
+    ``BUILD_DIR/<stem>_<hash>.so``; raises ``RuntimeError`` naming the
     compiler when there is none or the build fails."""
     key = hashlib.sha256(
-        source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
-    lib = build_dir / f"{stem}_{key}.so"
+        source.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
+    lib = BUILD_DIR / f"{stem}_{key}.so"
     if lib.exists():
         return lib
     cxx = os.environ.get("CXX") or shutil.which("g++")
     if cxx is None:
         raise RuntimeError(f"no C++ compiler to build {source.name}: set "
                            "CXX or put g++ on PATH")
-    build_dir.mkdir(parents=True, exist_ok=True)
-    tmp = build_dir / f".{stem}_{key}.{os.getpid()}.so"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f".{stem}_{key}.{os.getpid()}.so"
     try:
-        r = subprocess.run([cxx, *flags, str(source), "-o", str(tmp)],
+        r = subprocess.run([cxx, *CXX_FLAGS, str(source), "-o", str(tmp)],
                            capture_output=True, text=True, timeout=300)
     except OSError as e:
         raise RuntimeError(f"C++ compiler {cxx!r} did not run: {e}") from e

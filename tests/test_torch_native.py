@@ -18,6 +18,7 @@ import pytest
 from iris_tts_tpu.data import native as jax_native
 from iris_tts_tpu_torch.data import audio_io
 from iris_tts_tpu_torch.data import native
+from iris_tts_tpu_torch.utils import cxx
 
 
 def _write(path, samples, sr, subtype):
@@ -45,8 +46,8 @@ def lib():
 def test_library_builds_from_the_ports_source(lib):
     assert native.SOURCE.name == "wavio.cpp"
     assert "iris_tts_tpu_torch" in str(native.SOURCE)
-    assert native.BUILD_DIR.name == "iris_tts_tpu_torch"
-    assert any(native.BUILD_DIR.glob("libiriswav_*.so"))
+    assert cxx.BUILD_DIR.name == "iris_tts_tpu_torch"
+    assert any(cxx.BUILD_DIR.glob("libiriswav_*.so"))
 
 
 def test_native_read_matches_python(tmp_path, rng, lib):
@@ -162,7 +163,7 @@ def test_a_failed_build_falls_back(tmp_path, monkeypatch):
     """No compiler: the library is None and nothing raises."""
     monkeypatch.setattr(native, "_lib", None)
     monkeypatch.setattr(native, "_tried", False)
-    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cxx, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
     assert native.get_lib() is None
     assert not any((tmp_path / "build").glob("*.so"))

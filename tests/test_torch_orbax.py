@@ -8,8 +8,9 @@ against the libraries it replaces, on the CPU.
   concatenated and skippable frames; the largest window the format can
   state; a hypothesis round trip; corrupt frames raise ``ValueError``.
 * ``convert/ocdbt.py`` against tensorstore: multi-level B-trees, values
-  inline and out of line, compressed and raw nodes, version-tree nodes,
-  numbered manifests; every key and value bitwise.
+  inline and out of line, compressed and raw nodes, the latest of 20
+  commits (older ones in version-tree nodes), numbered manifests; every
+  key and value bitwise.
 * ``convert/orbax.py`` against orbax: JAX's ``save_params`` on trees of
   every dtype a JAX train state holds, multi-chunk zarr arrays with
   missing chunks, and the released artifact (all 378 leaves bitwise, and
@@ -300,34 +301,16 @@ def test_ocdbt_matches_tensorstore(case, tmp_path):
     reader = _assert_same_db(tmp_path / "db", kv)
     if case.startswith("tiny"):
         assert reader.root.height >= 2  # interior nodes were walked
+    if case == "twenty_commits":
+        # more versions than the manifest's 16 inline: older ones went to
+        # version-tree nodes, and the latest is still read
+        assert reader.root.generation > 16
 
 
 def test_ocdbt_numbered_manifest(tmp_path):
     _write_db(tmp_path / "db", {"manifest_kind": "numbered"}, 4, 5)
     assert list((tmp_path / "db").glob("manifest.0*"))
     _assert_same_db(tmp_path / "db")
-
-
-def test_ocdbt_every_generation_through_the_version_tree(tmp_path):
-    """tensorstore keeps the newest versions in the manifest and the older
-    ones in version-tree nodes (arity 16 here, so 40 commits give leaf and
-    interior nodes): every generation reads as tensorstore's ``version``."""
-    db = tmp_path / "db"
-    _write_db(db, {"compression": {"id": "zstd"}}, 40, 1)
-    latest = ocdbt.OcdbtReader(db).root.generation
-    assert latest > 32
-    heights = set()
-    for g in range(1, latest + 1):
-        kv = ts.KvStore.open({"driver": "ocdbt", "base": f"file://{db}",
-                              "version": g}).result()
-        want = sorted(k.decode() for k in kv.list().result())
-        reader = ocdbt.OcdbtReader(db, generation=g)
-        assert reader.root.generation == g
-        assert reader.list() == want, g
-        for k in want:
-            assert reader.read(k) == kv.read(k).result().value
-    with pytest.raises(KeyError):
-        ocdbt.OcdbtReader(db, generation=latest + 1)
 
 
 def test_ocdbt_corrupt_node_raises(tmp_path):
