@@ -25,7 +25,9 @@ boundaries (:meth:`~TTSPipeline.synthesize_long`,
 warmup of every serving shape, and the dispatch/collect split the serving
 batcher (``serve/batcher.py``) drives. Phoneme features reach frame rate by
 hard length regulation or, with ``upsample="gaussian"``, by Gaussian
-upsampling.
+upsampling. The host-side stage methods open ``utils/prof`` spans
+(``iris.encode``, ``iris.stage_a``, ``iris.stage_b``, ``iris.acoustic``,
+``iris.vocoder``, ``iris.collect``) while a profiler records.
 
 The fused path's device work is one function, :func:`fused_synthesis`,
 whose prior noise is an input. The live path draws that noise from a
@@ -117,6 +119,7 @@ from iris_tts_tpu_torch.text.frontend import (
     create_text_processor,
 )
 from iris_tts_tpu_torch.text.phonemes import PhonemeVocab
+from iris_tts_tpu_torch.utils import prof
 
 logger = logging.getLogger(__name__)
 
@@ -307,7 +310,6 @@ class TTSPipeline:
     fused_frames_per_phoneme: int = 12
     fused_overflow_tolerance: Optional[float] = 0.1
     fused_overflow_count: int = field(default=0, init=False)
-    fused_overflow_frames: int = field(default=0, init=False)
     fused_fallback_count: int = field(default=0, init=False)
     _seed_counter: int = field(default=0, init=False, repr=False)
     _overflow_log_t: float = field(default=0.0, init=False, repr=False)
@@ -642,13 +644,15 @@ class TTSPipeline:
         """:func:`acoustic` on the prior sample of ``seed`` for this rank's
         rows of an ``n``-row request → (mel [B,T,n_mels], per-row frame
         counts [B])."""
-        eps = self._prior_noise(n, total_frames, seed)
-        return acoustic(self.model, enc, frames, total_frames,
-                        prior_latent(eps, temperature), self.use_postnet,
-                        self.upsample)
+        with prof.span("acoustic"):
+            eps = self._prior_noise(n, total_frames, seed)
+            return acoustic(self.model, enc, frames, total_frames,
+                            prior_latent(eps, temperature), self.use_postnet,
+                            self.upsample)
 
     def _vocode_device(self, mel: torch.Tensor) -> torch.Tensor:
-        return self.model.hifigan(mel)
+        with prof.span("vocoder"):
+            return self.model.hifigan(mel)
 
     def _vocode_window(self, mel: torch.Tensor, start: int,
                        chunk_samples: int, pcm16: bool) -> torch.Tensor:
@@ -673,12 +677,14 @@ class TTSPipeline:
         """Acoustic model, vocoder and optional PCM16 on the device, left
         there (no host sync); on a mesh, this rank's rows of an ``n``-row
         request, gathered."""
-        mel, n_frames = self._acoustic(enc, frames, seed_int, t_bucket,
-                                       temperature, n)
-        audio = self._maybe_pcm16(self._vocode_device(mel), pcm16)
-        return _Dispatch(self._gather(audio, n), self._gather(n_frames, n),
-                         self._gather(mel, n) if return_mel else None, n,
-                         pcm16)
+        with prof.span("stage_b"):
+            mel, n_frames = self._acoustic(enc, frames, seed_int, t_bucket,
+                                           temperature, n)
+            audio = self._maybe_pcm16(self._vocode_device(mel), pcm16)
+            return _Dispatch(self._gather(audio, n),
+                             self._gather(n_frames, n),
+                             self._gather(mel, n) if return_mel else None, n,
+                             pcm16)
 
     def _sync(self) -> None:
         """Wait for the device's queued work (warmup barrier)."""
@@ -710,19 +716,21 @@ class TTSPipeline:
         """Texts → bucketed, padded [B, P] ids + [B] lengths (host)."""
         if not texts:
             raise ValueError("synthesize needs at least one utterance")
-        id_lists = [self._text_to_ids_cached(t) for t in texts]
-        lengths = np.array([len(i) for i in id_lists], np.int64)
-        p_bucket = pick_bucket(int(lengths.max()), self.phoneme_buckets)
-        if int(lengths.max()) > p_bucket:
-            logger.warning(
-                "utterance with %d phonemes exceeds the largest phoneme "
-                "bucket (%d); the tail will be truncated",
-                int(lengths.max()), p_bucket)
-            lengths = np.minimum(lengths, p_bucket)
-        ids = np.full((len(texts), p_bucket), self.vocab.pad_id, np.int64)
-        for row, seq in zip(ids, id_lists):
-            row[: len(seq)] = seq[:p_bucket]
-        return ids, lengths
+        with prof.span("encode"):
+            id_lists = [self._text_to_ids_cached(t) for t in texts]
+            lengths = np.array([len(i) for i in id_lists], np.int64)
+            p_bucket = pick_bucket(int(lengths.max()), self.phoneme_buckets)
+            if int(lengths.max()) > p_bucket:
+                logger.warning(
+                    "utterance with %d phonemes exceeds the largest phoneme "
+                    "bucket (%d); the tail will be truncated",
+                    int(lengths.max()), p_bucket)
+                lengths = np.minimum(lengths, p_bucket)
+            ids = np.full((len(texts), p_bucket), self.vocab.pad_id,
+                          np.int64)
+            for row, seq in zip(ids, id_lists):
+                row[: len(seq)] = seq[:p_bucket]
+            return ids, lengths
 
     def _to_device(self, *arrays: np.ndarray) -> List[torch.Tensor]:
         return [torch.from_numpy(a).to(self.device) for a in arrays]
@@ -793,11 +801,12 @@ class TTSPipeline:
         """Stage A on this rank's rows of a padded id batch → (enc, frames,
         the request's largest predicted total as a 0-d device tensor: the
         maximum over the ranks on a mesh)."""
-        ids, lengths = self._rows_to_device(ids_np, lengths_np)
-        enc, frames, total = stage_a(self.model, ids, lengths)
-        total = all_reduce_(total.reshape(1), self._mesh, "frame_bucket",
-                            op="max")
-        return enc, frames, total[0]
+        with prof.span("stage_a"):
+            ids, lengths = self._rows_to_device(ids_np, lengths_np)
+            enc, frames, total = stage_a(self.model, ids, lengths)
+            total = all_reduce_(total.reshape(1), self._mesh, "frame_bucket",
+                                op="max")
+            return enc, frames, total[0]
 
     def _run_stage_a(self, texts: Sequence[str]):
         """Host frontend + stage A + frame-bucket choice (one scalar
@@ -830,7 +839,6 @@ class TTSPipeline:
         if not n_over:
             return
         self.fused_overflow_count += n_over
-        self.fused_overflow_frames += int(deficit.sum())
         now = time.monotonic()
         if now - self._overflow_log_t > 60.0:
             self._overflow_log_t = now
@@ -907,15 +915,17 @@ class TTSPipeline:
     def _fetch_rows(self, disp: _Dispatch):
         """One device→host copy of the batch, trimmed to each row's frame
         count × hop → (waveforms, mels or None)."""
-        hop = self.config.hifigan.total_upsample
-        n_np = disp.n_frames.cpu().numpy().astype(np.int64)
-        audio_np = to_host(disp.audio)
-        outs = [a[: int(k) * hop] for a, k in zip(audio_np[:disp.n], n_np)]
-        mels = None
-        if disp.mel is not None:
-            mel_np = to_host(disp.mel)
-            mels = [m[: int(k)] for m, k in zip(mel_np[:disp.n], n_np)]
-        return outs, mels
+        with prof.span("collect"):
+            hop = self.config.hifigan.total_upsample
+            n_np = disp.n_frames.cpu().numpy().astype(np.int64)
+            audio_np = to_host(disp.audio)
+            outs = [a[: int(k) * hop]
+                    for a, k in zip(audio_np[:disp.n], n_np)]
+            mels = None
+            if disp.mel is not None:
+                mel_np = to_host(disp.mel)
+                mels = [m[: int(k)] for m, k in zip(mel_np[:disp.n], n_np)]
+            return outs, mels
 
     def _batched_collect(self, disp: _Dispatch) -> List[np.ndarray]:
         """Copy a :meth:`_batched_dispatch` handle to the host and trim →

@@ -5,7 +5,10 @@ The texts are sorted by phoneme count and cut into batches of
 durations) runs for every batch first; then stage B (acoustic model and
 vocoder) runs grouped by frame bucket, so consecutive calls reuse the same
 shapes. The summary of ``SynthesisMeter`` (realtime factor, mel frames a
-second, latency) is logged and returned.
+second, latency) is logged and returned. While a profiler records (as
+inside ``utils.prof.trace``), each ``synthesize_batches`` call opens the
+``iris.`` spans and counts the useful and padded stage-B frames that
+``utils/prof.py`` describes.
 
 ``--mesh`` runs data-parallel over the processes of the
 ``torch.distributed`` group (``TTSPipeline.use_mesh``; the batch size
@@ -41,6 +44,7 @@ from iris_tts_tpu_torch.scripts.common import (
     setup_logging,
     spawn_cpu_ranks,
 )
+from iris_tts_tpu_torch.utils import prof
 from iris_tts_tpu_torch.utils.metrics import SynthesisMeter
 
 logger = logging.getLogger(__name__)
@@ -89,36 +93,46 @@ def synthesize_batches(
     equals ``pipe.synthesize([texts[i] for i in idxs], seed=batch_seed,
     fused=False)``. On a pipeline's mesh each rank runs its rows of every
     batch and every rank gets every waveform."""
-    encoded = [pipe._text_to_ids_cached(t) for t in texts]
-    order = sorted(range(len(texts)), key=lambda i: len(encoded[i]))
-    staged = []
-    for start in range(0, len(order), batch_size):
-        idxs = order[start: start + batch_size]
-        while len(idxs) < batch_size:  # pad the last batch (dropped below)
-            idxs.append(idxs[-1])
-        staged.append((idxs, *pipe._stage_a_device(
-            *pipe._encode_texts([texts[i] for i in idxs]))))
+    with prof.span("job"):
+        with prof.span("frontend"):
+            encoded = [pipe._text_to_ids_cached(t) for t in texts]
+        order = sorted(range(len(texts)), key=lambda i: len(encoded[i]))
+        staged = []
+        for start in range(0, len(order), batch_size):
+            idxs = order[start: start + batch_size]
+            while len(idxs) < batch_size:  # pad the last batch
+                idxs.append(idxs[-1])
+            staged.append((idxs, *pipe._stage_a_device(
+                *pipe._encode_texts([texts[i] for i in idxs]))))
 
-    # Reading the totals waits for all of stage A, queued back to back.
-    by_bucket: Dict[int, list] = {}
-    for item in staged:
-        by_bucket.setdefault(pipe._frame_bucket(int(item[3])), []).append(
-            item)
+        # Reading the totals waits for all of stage A, queued back to back.
+        by_bucket: Dict[int, list] = {}
+        with prof.span("bucket"):
+            for item in staged:
+                by_bucket.setdefault(pipe._frame_bucket(int(item[3])),
+                                     []).append(item)
 
-    audio: Dict[int, np.ndarray] = {}
-    plan = []
-    n_done = 0
-    for t_bucket, group in sorted(by_bucket.items()):
-        for gi, (idxs, enc, frames, _) in enumerate(group):
-            batch_seed = wrap_int32(seed + n_done)
-            rows = pipe._batched_collect(pipe._stage_b(
-                enc, frames, t_bucket, batch_seed, 1.0, False, len(idxs)))
-            for r, i in enumerate(idxs):
-                audio.setdefault(i, rows[r])
-            plan.append((idxs, batch_seed))
-            n_done += len(set(idxs))
-            logger.info("bucket T=%d batch %d: P=%d → %d utterances done",
-                        t_bucket, gi, frames.shape[1], n_done)
+        hop = pipe.config.hifigan.total_upsample
+        audio: Dict[int, np.ndarray] = {}
+        plan = []
+        n_done = 0
+        for t_bucket, group in sorted(by_bucket.items()):
+            for gi, (idxs, enc, frames, _) in enumerate(group):
+                batch_seed = wrap_int32(seed + n_done)
+                rows = pipe._batched_collect(pipe._stage_b(
+                    enc, frames, t_bucket, batch_seed, 1.0, False, len(idxs)))
+                for r, i in enumerate(idxs):
+                    audio.setdefault(i, rows[r])
+                n_real = len(set(idxs))  # the padding repeats come last
+                if prof.tracing():
+                    prof.count("stage_b.frames_useful",
+                               sum(len(a) for a in rows[:n_real]) // hop)
+                    prof.count("stage_b.frames_padded",
+                               len(idxs) * t_bucket)
+                plan.append((idxs, batch_seed))
+                n_done += n_real
+                logger.info("bucket T=%d batch %d: P=%d → %d utterances done",
+                            t_bucket, gi, frames.shape[1], n_done)
     return audio, plan
 
 

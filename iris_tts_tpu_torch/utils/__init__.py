@@ -10,10 +10,8 @@ from iris_tts_tpu_torch.utils.metrics import (
     quality_report,
 )
 from iris_tts_tpu_torch.utils.prof import (
-    StepTimer,
     grad_norm,
     guard_finite,
-    profile_stats,
     trace,
     tree_finite,
 )
@@ -22,13 +20,11 @@ __all__ = [
     "MetricsWriter",
     "RunningMean",
     "SynthesisMeter",
-    "StepTimer",
     "grad_norm",
     "log_spectral_distance",
     "mel_cepstral_distortion",
     "quality_report",
     "guard_finite",
-    "profile_stats",
     "trace",
     "tree_finite",
 ]

@@ -159,27 +159,6 @@ def test_grad_norm_and_tree_finite_match_jax():
     assert not tprof.tree_finite(lin)
 
 
-def test_step_timer_and_profile_stats_equal(monkeypatch):
-    ticks = [0.0, 1.0, 1.0, 1.5, 2.0, 2.75, 3.0, 3.5]
-
-    def run(module):
-        clock = iter(ticks)
-        monkeypatch.setattr(module, "time",
-                            type("Clock", (), {"time": lambda: next(clock)}))
-        timer = module.StepTimer(warmup=1)
-        for _ in range(4):
-            with timer:
-                pass
-        return timer.mean_s
-
-    got, want = run(tprof), run(jprof)
-    assert got == want == pytest.approx((0.5 + 0.75 + 0.5) / 3)
-    m = {"loss": 1.25}
-    assert tprof.profile_stats(m, 0.2, 400) == jprof.profile_stats(
-        m, 0.2, 400)
-    assert tprof.profile_stats(m, 0.0, 4) == jprof.profile_stats(m, 0.0, 4)
-
-
 def test_guard_finite_prints_and_returns_input(capsys):
     x = torch.tensor([1.0, float("nan"), 2.0])
     assert tprof.guard_finite("mel", x) is x
