@@ -15,6 +15,12 @@ against its plain PyTorch version:
    kernel, the plain version and a cuFFT yardstick (``torch.stft`` then
    magnitude, mel matmul and log; the port never calls it) and the
    kernel's bound;
+2b. build the MRF resblock kernel (``ops/csrc/mrf_resblock.cu``) and hold
+   it against its plain version (the cuDNN + elementwise composition it
+   replaces) at the main path's shapes, 32 rows x 742 frames: V2's 32-,
+   16- and 8-channel stages and V1's 32-channel stage, unit-gain weights
+   (max-abs <= 1e-5 of the peak), with the times of both and the
+   kernel's FFMA bound;
 3. synthesis at full width: the fused path (one sentence) and the
    two-stage path (a batch of 4), with their latencies;
 4. copy synthesis: log-mel of the phase-3 audio through the kernel, then
@@ -256,7 +262,10 @@ the same through phase 3's weights, 8 launches); the serving paths, the
 model axis, the C++ host and the analysis tools compute no log-mel: 0
 launches. Each path's
 launch counts are zeroed just before it and read just after, and a
-kernel of the path that was not launched fails the run.
+kernel of the path that was not launched fails the run. The MRF kernel's
+launches are counted the same way, path by path; synthesis (a multiple
+of 9, one a layer of V1's 32-channel stage a vocoder call), serving, the
+analysis tools and the trained model must launch it.
 The last three lines are the card's name and power limit, a
 ``{"kernels": [...]}`` JSON line, and ``{"ok": true, "device": {...}}``.
 Any failed phase exits non-zero; so does a host without a CUDA device.
@@ -329,6 +338,16 @@ AOT_LIVE_LIMIT = 1e-6
 AOT_PADDED_BATCH_LIMIT = 1e-5
 # Phase 10's corpus (make_synthetic_corpus --n).
 CLI_CORPUS = 32
+# Phase 2b: the MRF kernel's stages at the main path's shapes, 32 rows x
+# 742 frames (the bulk benchmark's batch and frame bucket): name ->
+# (channels, samples a frame). V2's narrow stages and V1's 32-channel one.
+MRF_ROWS, MRF_FRAMES = 32, 742
+MRF_STAGES = {"v2_32ch": (32, 64), "v2_16ch": (16, 128), "v2_8ch": (8, 256),
+              "v1_32ch": (32, 256)}
+MRF_LIMIT = 1e-5  # kernel vs plain max-abs, of the plain output's peak
+# A V1 vocoder call launches the MRF kernel once a layer of its 32-channel
+# stage: 3 resblocks of 3 layers.
+V1_MRF_LAUNCHES = 9
 # The loss each stage's fixed-batch check follows.
 STAGE_LOSS = {"duration": "duration_loss", "vae": "total",
               "postnet": "postnet_l1", "gan": "gen_mel_l1"}
@@ -472,6 +491,98 @@ def bound(flops: float, nbytes: float):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
+
+
+def mrf_work(batch: int, channels: int, t: int, blocks):
+    """(operations, bytes) a stage's MRF needs at least: each conv's
+    multiply-adds (two operations each); each layer's input read and
+    output written once, the running sum read by the later blocks' last
+    layers, and the weights."""
+    from iris_tts_tpu_torch.ops import mrf_cuda
+
+    shapes = [tuple(conv.weight.shape) for b in blocks
+              for pair in b.layers() for conv in pair]
+    flops, _ = mrf_cuda.composition_cost((batch, channels, t), shapes,
+                                         len(blocks))
+    layers = len(shapes) // 2
+    params = sum(co * ci * k + co for co, ci, k in shapes)
+    nbytes = 4 * ((2 * layers + len(blocks) - 1) * batch * channels * t
+                  + params)
+    return flops, nbytes
+
+
+def phase2b_mrf(dev, card: str) -> dict:
+    """The MRF kernel against its plain version (the library composition it
+    replaces: cuDNN's convs and PyTorch's elementwise kernels) at the main
+    path's shapes (:data:`MRF_STAGES`), with unit-gain weights so every
+    layer moves its input; max-abs within :data:`MRF_LIMIT` of the peak,
+    and the times of both beside the kernel's bound. Returns the worst
+    error and each stage's (ms, plain ms, bound ms, bound by, error)."""
+    from iris_tts_tpu_torch.models.hifigan import ResBlock
+    from iris_tts_tpu_torch.ops import mrf_cuda
+    from iris_tts_tpu_torch.runtime import pin_math_precision
+
+    # The plain version as the port runs it: cuDNN's convs with TF32 off
+    # (the kernel ignores the switch; with it on the plain version reads
+    # ~2e-4 of the peak away).
+    pin_math_precision()
+    t_build = time.perf_counter()
+    lib_path = mrf_cuda.build_library()
+    mrf_cuda._library()
+    print(f"phase 2b build: mrf_resblock.cu -> {lib_path.name} in "
+          f"{time.perf_counter() - t_build:.1f} s", flush=True)
+    g = torch.Generator().manual_seed(20)
+    worst, stages = 0.0, {}
+    for name, (c, per_frame) in MRF_STAGES.items():
+        blocks = []
+        for k in (3, 7, 11):
+            block = ResBlock(c, k, (1, 3, 5))
+            with torch.no_grad():
+                for pname, prm in block.named_parameters():
+                    std = (0.1 if pname.endswith("bias")
+                           else (prm.shape[1] * prm.shape[2]) ** -0.5)
+                    prm.copy_(torch.randn(prm.shape, generator=g) * std)
+            blocks.append(block.to(dev))
+        t = MRF_FRAMES * per_frame
+        x = torch.randn((MRF_ROWS, c, t), generator=g).to(dev)
+        with torch.inference_mode():
+            got = mrf_cuda.mrf_cuda(x, blocks)
+            want = mrf_cuda.mrf_plain(x, blocks)
+            err = max_abs(got, want)
+            peak = float(want.abs().max())
+            del got, want
+            check(err <= MRF_LIMIT * peak, f"MRF kernel vs plain max-abs "
+                  f"{err} <= {MRF_LIMIT} x peak {peak} ({name})")
+            k_ms = time_cuda_ms(lambda: mrf_cuda.mrf_cuda(x, blocks), reps=5,
+                                warmup=2, graph=False)
+            p_ms = time_cuda_ms(lambda: mrf_cuda.mrf_plain(x, blocks),
+                                reps=5, warmup=2, graph=False)
+        flops, nbytes = mrf_work(MRF_ROWS, c, t, blocks)
+        b_ms, b_by = bound(flops, nbytes)
+        worst = max(worst, err)
+        stages[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                        "bound_by": b_by, "max_abs_err": err, "peak": peak}
+        print(f"phase 2b MRF {name} [{MRF_ROWS}, {c}, {t}]: max-abs "
+              f"{err:.3e} ({err / peak:.2e} of the peak); kernel {k_ms:.3f} "
+              f"ms, plain (cuDNN + elementwise) {p_ms:.3f} ms, bound "
+              f"{b_ms:.3f} ms ({b_by}; {flops / 1e12:.4f} TFLOP, "
+              f"{nbytes / 1e9:.3f} GB), kernel/bound {k_ms / b_ms:.2f}x, "
+              f"plain/kernel {p_ms / k_ms:.2f}x (device times: CUDA events "
+              f"around 5 eager calls; {card})", flush=True)
+        del x, blocks
+        torch.cuda.empty_cache()
+    return {"worst": worst, "stages": stages}
+
+
+@contextlib.contextmanager
+def mrf_launches(by_path: dict, path: str):
+    """Zero the MRF kernel's launch count, run the block, and keep the
+    count under ``path`` in ``by_path``."""
+    from iris_tts_tpu_torch.ops import mrf_cuda
+
+    mrf_cuda.mrf_cuda.launches = 0
+    yield
+    by_path[path] = mrf_cuda.mrf_cuda.launches
 
 
 def log_mel_library(audio, cfg, window, fb_t):
@@ -1519,7 +1630,7 @@ def phase9_bf16(dev, card: str, pipe, handoff) -> int:
     from iris_tts_tpu_torch.models.pipeline import fused_synthesis, pick_bucket
     from iris_tts_tpu_torch.models.vae import TextConditionedVAE
     from iris_tts_tpu_torch.ops.length import round_up_to_multiple
-    from iris_tts_tpu_torch.ops import mel_cuda
+    from iris_tts_tpu_torch.ops import mel_cuda, mrf_cuda
     from iris_tts_tpu_torch.ops.stft import (
         log_mel_spectrogram,
         log_mel_spectrogram_plain,
@@ -4158,7 +4269,7 @@ def phase17_release(dev, card: str, control):
     from iris_tts_tpu_torch.convert import orbax, zstd
     from iris_tts_tpu_torch.data.audio_io import read_wav
     from iris_tts_tpu_torch.models.pipeline import TTSPipeline
-    from iris_tts_tpu_torch.ops import mel_cuda
+    from iris_tts_tpu_torch.ops import mel_cuda, mrf_cuda
     from iris_tts_tpu_torch.ops.stft import (
         log_mel_spectrogram,
         log_mel_spectrogram_plain,
@@ -4334,7 +4445,7 @@ def main() -> int:
     import iris_tts_tpu_torch
     from iris_tts_tpu_torch import AudioConfig, IrisConfig
     from iris_tts_tpu_torch.models.pipeline import TTSPipeline
-    from iris_tts_tpu_torch.ops import mel_cuda
+    from iris_tts_tpu_torch.ops import mel_cuda, mrf_cuda
     from iris_tts_tpu_torch.ops.stft import (
         log_mel_spectrogram,
         log_mel_spectrogram_plain,
@@ -4352,7 +4463,7 @@ def main() -> int:
     lib_path = mel_cuda.build_library()
     mel_cuda._library()
     build_s = time.perf_counter() - t0
-    ptxas = lib_path.with_suffix(".ptxas.txt")
+    ptxas = lib_path.with_suffix(".build.txt")
     ptxas_info = " | ".join(
         ln.strip() for ln in ptxas.read_text().splitlines()
         if "registers" in ln or "spill" in ln) if ptxas.exists() else "n/a"
@@ -4425,8 +4536,13 @@ def main() -> int:
           f"max-abs {worst:.3e}",
           flush=True)
 
+    # -- 2b. the MRF kernel vs plain at the main path's shapes ----------------
+    mrf = phase2b_mrf(dev, card)
+    mrf_by_path = {}
+
     # -- main path: phases 3 and 4 ------------------------------------------
     mel_cuda.log_mel_cuda.launches = 0
+    mrf_cuda.mrf_cuda.launches = 0
 
     # 3. synthesis at full width
     t0 = time.perf_counter()
@@ -4485,49 +4601,65 @@ def main() -> int:
           f"{wave_err:.3e} (peak {peak:.3e}, relative "
           f"{wave_err / max(peak, 1e-30):.3e}), mel max-abs {mel_err:.3e}",
           flush=True)
+    mrf_by_path["synthesis"] = mrf_cuda.mrf_cuda.launches
+    check(mrf_by_path["synthesis"] >= V1_MRF_LAUNCHES
+          and mrf_by_path["synthesis"] % V1_MRF_LAUNCHES == 0,
+          f"the main path launched the MRF kernel {V1_MRF_LAUNCHES} times a "
+          f"vocoder call ({mrf_by_path['synthesis']})")
 
     # -- 6. training at full width (the training path) ----------------------
-    train_launches, handoff = phase6_training(dev, card)
+    with mrf_launches(mrf_by_path, "training"):
+        train_launches, handoff = phase6_training(dev, card)
 
     # -- 7. serving at full width (the serving path) ------------------------
-    serve_launches, served_7 = phase7_serving(dev, card)
+    with mrf_launches(mrf_by_path, "serving"):
+        serve_launches, served_7 = phase7_serving(dev, card)
 
     # -- 8. ahead-of-time serving at full width (the AOT path) ---------------
-    aot_launches = phase8_aot(dev, card, served_7)
+    with mrf_launches(mrf_by_path, "aot_serving"):
+        aot_launches = phase8_aot(dev, card, served_7)
 
     # -- 9. bf16 and remat (the bf16 path) -----------------------------------
-    bf16_launches = phase9_bf16(dev, card, pipe, handoff)
+    with mrf_launches(mrf_by_path, "bf16"):
+        bf16_launches = phase9_bf16(dev, card, pipe, handoff)
     check(bf16_launches >= 1, "the bf16 path launched the log-mel kernel")
 
     # -- 10. the command-line drivers (the CLI path) --------------------------
-    cli_launches, cli_summary, stage_dirs = phase10_cli(dev, card)
+    with mrf_launches(mrf_by_path, "cli"):
+        cli_launches, cli_summary, stage_dirs = phase10_cli(dev, card)
     # phase 13's AOTInductor compile runs in a child beside phases 11-12
     native_job = start_native_export()
     try:
         check(cli_launches >= 1, "the CLI path launched the log-mel kernel")
 
         # -- 11. multi-device on one card (the mesh path) ---------------------
-        mesh_launches, tp_launches, serve_mesh_launches = phase11_mesh(
-            dev, card, cli_summary)
+        with mrf_launches(mrf_by_path, "mesh"):
+            mesh_launches, tp_launches, serve_mesh_launches = phase11_mesh(
+                dev, card, cli_summary)
         check(mesh_launches >= 1,
               "the mesh path launched the log-mel kernel")
 
         # -- 12. G2P training, the converters and native IO (the demo
         # vocoder's path) ------------------------------------------------------
-        demo_launches = phase12(dev, card, stage_dirs)
+        with mrf_launches(mrf_by_path, "vocoder_demo"):
+            demo_launches = phase12(dev, card, stage_dirs)
 
         # -- 13. the C++ serving host (the native host path) ------------------
-        native_launches = phase13_native(dev, card, native_job)
+        with mrf_launches(mrf_by_path, "native_host"):
+            native_launches = phase13_native(dev, card, native_job)
 
         # -- 14. the diagnostics and pre-flight tools (the diagnostics path) --
-        diag_launches = phase14_diagnostics(dev, card, stage_dirs)
+        with mrf_launches(mrf_by_path, "diagnostics"):
+            diag_launches = phase14_diagnostics(dev, card, stage_dirs)
     finally:
         stage_dirs["tmp"].cleanup()
         stop_native_export(native_job)
 
     # -- 15. the speed-of-light, memory and vocoder-profile tools (the
     # analysis path) -------------------------------------------------------
-    analysis_launches, sentence = phase15_analysis(dev, card, pipe, handoff)
+    with mrf_launches(mrf_by_path, "analysis"):
+        analysis_launches, sentence = phase15_analysis(dev, card, pipe,
+                                                       handoff)
 
     # -- where the time goes: one fused synthesize under the profiler --------
     busy_rows = profile_line("fused synthesize",
@@ -4535,10 +4667,20 @@ def main() -> int:
     phase15_sentence_line(card, sentence, busy_rows)
 
     # -- 16. the benchmark drivers (the bench path) ---------------------------
-    bench_launches, bench_err = phase16_bench(card)
+    with mrf_launches(mrf_by_path, "bench"):
+        bench_launches, bench_err = phase16_bench(card)
 
     # -- 17. the shipped trained model through the port (the release path) --
-    release_launches, release_err = phase17_release(dev, card, pipe)
+    with mrf_launches(mrf_by_path, "release"):
+        release_launches, release_err = phase17_release(dev, card, pipe)
+    # The paths that vocode in f32 on the card in this process: synthesis
+    # (checked above), serving, the analysis tools and the trained model.
+    for path in ("serving", "analysis", "release"):
+        check(mrf_by_path[path] >= V1_MRF_LAUNCHES,
+              f"the {path} path launched the MRF kernel "
+              f"({mrf_by_path[path]})")
+    print("MRF kernel launches by path: " + json.dumps(mrf_by_path),
+          flush=True)
 
     jax_pkg = iris_tts_tpu_torch.__name__.removesuffix("_torch")
     kernels = [{
@@ -4572,6 +4714,21 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": l_ms,
+    }, {
+        "name": "mrf_resblock",
+        "route": "cuda",
+        "source": "iris_tts_tpu_torch/ops/csrc/mrf_resblock.cu",
+        # The JAX package leaves HiFiGAN's convolutions to XLA.
+        "replaces": None,
+        "launches": sum(mrf_by_path.values()),
+        "launches_by_path": mrf_by_path,
+        "max_abs_err": mrf["worst"],
+        # At V2's 32-channel stage; each stage under "stages". The plain
+        # version is the library composition the kernel replaces.
+        **{key: mrf["stages"]["v2_32ch"][key]
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": mrf["stages"]["v2_32ch"]["plain_ms"],
+        "stages": mrf["stages"],
     }]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -6,9 +6,17 @@ and ``ResBlock``), with torch padding semantics: convs pad
 so T mel frames become exactly T · prod(upsample_rates) samples.
 
 The convolutions are about 99% of synthesis FLOPs. In the JAX package they
-are XLA's own conv lowering (no Pallas kernel), and here they are
-``F.conv1d`` / ``F.conv_transpose1d``; f32 must stay f32 on the card, so
-callers pin TF32 off (``runtime.pin_math_precision``).
+are XLA's own conv lowering (no Pallas kernel). Here ``conv_pre``, the
+upsamplers, ``conv_post`` and the MRF resblocks of stages wider than 32
+channels (V1's 256, 128 and 64; V2's 64) are cuDNN's ``F.conv1d`` /
+``F.conv_transpose1d``, f32 with TF32 off (callers pin it,
+``runtime.pin_math_precision``). The MRF stages of 8, 16 and 32 channels
+(V1's last; V2's last three) run a hand-written f32 CUDA kernel, one launch
+a resblock layer with the MRF average and the next leaky ReLU in its
+epilogue (``ops/mrf_cuda.py``), on a CUDA float32 input with gradients off
+outside export tracing; anywhere else (the GAN step, bf16, export, the
+CPU) they run the same composition as the wide stages. Every stage returns
+the leaky ReLU of its average, the only form the next layer reads.
 
 ``dtype`` is the compute dtype (``models/layers.py``); the waveform comes
 out in it. ``remat=True`` recomputes each MRF ``ResBlock``'s activations
@@ -19,7 +27,8 @@ hold most of the GAN stage's activation memory), as the JAX generator's
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import functools
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +43,13 @@ from iris_tts_tpu_torch.models.layers import (
     init_params,
     set_dtype,
 )
+from iris_tts_tpu_torch.ops.mrf_cuda import (
+    LRELU_SLOPE,
+    block_refusal,
+    fused_mrf_applies,
+    mrf_plain,
+    mrf_stage,
+)
 from iris_tts_tpu_torch.runtime import (
     DeviceLike,
     DtypeLike,
@@ -42,8 +58,7 @@ from iris_tts_tpu_torch.runtime import (
     resolve_dtype,
     seeded_generator,
 )
-
-LRELU_SLOPE = 0.1
+from iris_tts_tpu_torch.utils import prof
 
 
 class TorchConv1d(Conv1d):
@@ -80,11 +95,18 @@ class ResBlock(nn.Module):
                  dilations: Tuple[int, ...]):
         super().__init__()
         self.n = len(dilations)
+        # Why the MRF kernel cannot run this block, or None.
+        self.kernel_refusal = block_refusal(channels, kernel_size, dilations)
         for i, d in enumerate(dilations):
             self.add_module(f"convs1_{i}",
                             TorchConv1d(channels, channels, kernel_size, d))
             self.add_module(f"convs2_{i}",
                             TorchConv1d(channels, channels, kernel_size, 1))
+
+    def layers(self) -> List[Tuple[TorchConv1d, TorchConv1d]]:
+        """Each layer's (dilated conv, plain conv), in order."""
+        return [(getattr(self, f"convs1_{i}"), getattr(self, f"convs2_{i}"))
+                for i in range(self.n)]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.n):
@@ -121,22 +143,29 @@ class HiFiGANGenerator(nn.Module):
         self.conv_post = TorchConv1d(c0 // (2 ** self.num_ups), 1, 7)
         set_dtype(self, dtype)
 
+    def mrf(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Stage ``i``'s multi-receptive-field fusion of the upsampled ``x``:
+        the leaky ReLU of the average of its resblocks' outputs. The kernel
+        where ``ops.mrf_cuda.fused_mrf_applies`` holds, else the library's
+        convs (each block recomputed in the backward pass under remat).
+        While a profiler records, counts the stage's resblock layers as
+        ``vocoder.fused_layers`` or ``vocoder.library_layers``."""
+        blocks = [getattr(self, f"resblocks_{i * self.num_kernels + j}")
+                  for j in range(self.num_kernels)]
+        n_layers = sum(block.n for block in blocks)
+        if fused_mrf_applies(x, blocks):
+            prof.count("vocoder.fused_layers", n_layers)
+            return mrf_stage(x, blocks)
+        prof.count("vocoder.library_layers", n_layers)
+        if self.remat and torch.is_grad_enabled():
+            blocks = [functools.partial(checkpoint_block, b) for b in blocks]
+        return mrf_plain(x, blocks)
+
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
-        x = self.conv_pre(mel.transpose(1, 2))
+        x = F.leaky_relu(self.conv_pre(mel.transpose(1, 2)), LRELU_SLOPE)
         for i in range(self.num_ups):
-            x = getattr(self, f"ups_{i}")(F.leaky_relu(x, LRELU_SLOPE))
-            # Multi-receptive-field fusion: average of the resblock outputs.
-            acc = None
-            for j in range(self.num_kernels):
-                block = getattr(self, f"resblocks_{i * self.num_kernels + j}")
-                if self.remat and torch.is_grad_enabled():
-                    out = checkpoint_block(block, x)
-                else:
-                    out = block(x)
-                acc = out if acc is None else acc + out
-            x = acc / self.num_kernels
-        x = self.conv_post(F.leaky_relu(x, LRELU_SLOPE))
-        return torch.tanh(x)[:, 0]
+            x = self.mrf(i, getattr(self, f"ups_{i}")(x))
+        return torch.tanh(self.conv_post(x))[:, 0]
 
 
 def receptive_radius_frames(config: HiFiGANConfig = HiFiGANConfig()) -> int:

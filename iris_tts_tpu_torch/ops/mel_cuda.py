@@ -21,10 +21,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import NamedTuple
 
@@ -39,50 +35,16 @@ from iris_tts_tpu_torch.ops.stft import (
     num_frames,
     padded_window,
 )
+from iris_tts_tpu_torch.utils.cxx import build_cuda_library
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "log_mel.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "iris_tts_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 MIN_N_FFT, MAX_N_FFT = 64, 2048  # the FFT sizes the kernel is compiled for
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    candidates = [
-        str(Path(cuda_home) / "bin" / "nvcc") if cuda_home else None,
-        shutil.which("nvcc"),
-        "/usr/local/cuda/bin/nvcc",
-    ]
-    for c in candidates:
-        if c and Path(c).is_file():
-            return c
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
 def build_library() -> Path:
     """Compile ``csrc/log_mel.cu`` (once per source hash) and return the
-    path of the shared library. ptxas' register/shared-memory report is
-    kept beside it as ``<name>.ptxas.txt``."""
-    key = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    lib = BUILD_DIR / f"log_mel_{key}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".log_mel_{key}.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {r.returncode}:\n{r.stderr[-4000:]}"
-        )
-    lib.with_suffix(".ptxas.txt").write_text(r.stderr)
-    os.replace(tmp, lib)
-    return lib
+    path of the shared library (``utils.cxx.build_cuda_library``)."""
+    return build_cuda_library(SOURCE, "log_mel")
 
 
 @functools.lru_cache(maxsize=None)

@@ -19,6 +19,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import functools
 from typing import Callable, List, Tuple
 
 import numpy as np
@@ -44,28 +45,19 @@ def median_ms(fn, *args, n: int = 20) -> float:
 
 def stage_calls(gen: HiFiGANGenerator) -> List[Tuple[str, Callable]]:
     """The generator's forward as a chain of parts, each a call on the
-    previous part's output: ``conv_pre`` on the time-major mel, then for
-    each stage ``ups_i`` (leaky ReLU, transposed conv) and ``mrf_i`` (the
-    average of its resblocks), then ``conv_post`` (leaky ReLU, conv, tanh)
-    → waveform ``[B, samples]``. The same ops in the same order as
-    ``gen.forward`` without remat."""
-    def mrf(blocks, x):
-        acc = None
-        for block in blocks:
-            out = block(x)
-            acc = out if acc is None else acc + out
-        return acc / len(blocks)
-
-    calls = [("conv_pre", lambda mel: gen.conv_pre(mel.transpose(1, 2)))]
+    previous part's output: ``conv_pre`` (conv, leaky ReLU) on the
+    time-major mel, then for each stage ``ups_i`` (transposed conv) and
+    ``mrf_i`` (``gen.mrf``: the leaky ReLU of its resblocks' average, by
+    the kernel where the generator runs it), then ``conv_post`` (conv,
+    tanh) → waveform ``[B, samples]``. The same ops in the same order as
+    ``gen.forward``."""
+    calls = [("conv_pre", lambda mel: F.leaky_relu(
+        gen.conv_pre(mel.transpose(1, 2)), LRELU_SLOPE))]
     for i in range(gen.num_ups):
-        ups = getattr(gen, f"ups_{i}")
-        blocks = [getattr(gen, f"resblocks_{i * gen.num_kernels + j}")
-                  for j in range(gen.num_kernels)]
-        calls.append((f"ups_{i}",
-                      lambda x, u=ups: u(F.leaky_relu(x, LRELU_SLOPE))))
-        calls.append((f"mrf_{i}", lambda x, b=blocks: mrf(b, x)))
-    calls.append(("conv_post", lambda x: torch.tanh(
-        gen.conv_post(F.leaky_relu(x, LRELU_SLOPE)))[:, 0]))
+        calls.append((f"ups_{i}", getattr(gen, f"ups_{i}")))
+        calls.append((f"mrf_{i}", functools.partial(gen.mrf, i)))
+    calls.append(("conv_post",
+                  lambda x: torch.tanh(gen.conv_post(x))[:, 0]))
     return calls
 
 

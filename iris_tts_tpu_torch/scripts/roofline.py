@@ -17,7 +17,9 @@ It is an upper bound on what a fused program needs: on the full-width
 vocoder it reads 8.3% above XLA's fused count of the JAX generator
 (``tests/test_torch_analysis.py``). In bf16 the per-op weight casts are
 counted, because the port pays for them. The counts come from the aten
-ops, not the kernels that run them, so they do not depend on the device.
+ops, not the kernels that run them, so they do not depend on the device:
+the MRF kernel's operator (``ops/mrf_cuda.py``) counts as the composition
+of convs and elementwise ops it replaces, in both counts.
 
 Peaks default to the NVIDIA H100 SXM5 data sheet (dense, 700 W): 989
 TFLOP/s in bf16 on the tensor cores, 66.9 TFLOP/s in f32 on the CUDA cores
@@ -47,6 +49,7 @@ from iris_tts_tpu_torch.models.pipeline import (
     fused_mel,
     fused_synthesis,
 )
+from iris_tts_tpu_torch.ops import mrf_cuda
 from iris_tts_tpu_torch.runtime import resolve_device
 from iris_tts_tpu_torch.scripts.common import add_device_arg
 
@@ -61,12 +64,15 @@ aten = torch.ops.aten
 # Ops that move no data although their schema is not a view's.
 _NO_DATA = {aten._unsafe_view, aten.lift_fresh, aten.empty, aten.empty_like,
             aten.empty_strided, aten.new_empty, aten.new_empty_strided}
+# The port's own operators, counted as what they replace.
+_OP_BYTES = {torch.ops.iris_tts.mrf_stage: mrf_cuda.mrf_stage_bytes}
 
 
 class ByteCounter(TorchDispatchMode):
     """Sums the input and output tensor bytes (``numel · element_size``)
     of every aten op run inside it, by op in :attr:`by_op`; views,
-    ``detach`` and allocations without a write count nothing."""
+    ``detach`` and allocations without a write count nothing, and an
+    operator of :data:`_OP_BYTES` counts its formula."""
 
     def __init__(self):
         super().__init__()
@@ -79,7 +85,11 @@ class ByteCounter(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if not func.is_view and func.overloadpacket not in _NO_DATA:
+        formula = _OP_BYTES.get(func.overloadpacket)
+        if formula is not None:
+            self.by_op[func.overloadpacket.__name__] += formula(*args,
+                                                                **kwargs)
+        elif not func.is_view and func.overloadpacket not in _NO_DATA:
             self.by_op[func.overloadpacket.__name__] += sum(
                 t.numel() * t.element_size()
                 for t in tree_leaves((args, kwargs, out))

@@ -49,6 +49,15 @@ def _short(name):
     return name[len(prof.SPAN_PREFIX):]
 
 
+def _vocoder_layers(pipe):
+    """The resblock layers of one vocoder call, which the generator counts
+    as ``vocoder.library_layers`` on the CPU (``vocoder.fused_layers``
+    where its CUDA kernel runs them)."""
+    cfg = pipe.config.hifigan
+    return len(cfg.upsample_rates) * sum(len(d)
+                                         for d in cfg.resblock_dilations)
+
+
 def test_off_without_a_profiler(pipe, fresh_counters):
     off = prof.span("job")
     assert off is prof.span("stage_b")  # one shared no-op
@@ -137,6 +146,7 @@ def test_frame_counters_equal_the_audio_and_the_buckets(pipe,
         "stage_b.frames_useful": sum(len(a) // hop for a in audio.values()),
         "stage_b.frames_padded": sum(len(idxs) * t for (idxs, _), t
                                      in zip(plan, buckets)),
+        "vocoder.library_layers": N_BATCHES * _vocoder_layers(pipe),
     }
     assert any(len(set(idxs)) < len(idxs) for idxs, _ in plan)  # padded
 
@@ -154,4 +164,6 @@ def test_other_entry_points_open_the_method_spans(pipe, fresh_counters,
         pipe.synthesize(TEXTS[:2], seed=1, fused=fused)
     got = Counter(_short(e.name) for e in _iris_events(p))
     assert got == {n: 1 for n in want}
-    assert prof.counters() == {}  # only the bulk path counts frames
+    # only the bulk path counts frames; every vocoder call counts its layers
+    assert prof.counters() == {"vocoder.library_layers":
+                               _vocoder_layers(pipe)}
