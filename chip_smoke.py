@@ -21,6 +21,14 @@ against its plain PyTorch version:
    16- and 8-channel stages and V1's 32-channel stage, unit-gain weights
    (max-abs <= 1e-5 of the peak), with the times of both and the
    kernel's FFMA bound;
+2c. build the anti-aliased activation kernel (``ops/csrc/
+   amp_activation.cu``) and hold it against its plain version (the
+   composition of pads, depthwise convs and SnakeBeta it replaces) at
+   BigVGAN-v2's six stage shapes, 32 rows x 768 frames, TF32 off
+   (max-abs <= 1e-5 of the peak), with the times of both and the
+   kernel's byte bound; then one sentence and a batch of 4 through a
+   full-width BigVGAN-v2 pipeline (seeded weights), its launches zeroed
+   just before and read just after: 109 a vocoder call;
 3. synthesis at full width: the fused path (one sentence) and the
    two-stage path (a batch of 4), with their latencies;
 4. copy synthesis: log-mel of the phase-3 audio through the kernel, then
@@ -265,7 +273,9 @@ launch counts are zeroed just before it and read just after, and a
 kernel of the path that was not launched fails the run. The MRF kernel's
 launches are counted the same way, path by path; synthesis (a multiple
 of 9, one a layer of V1's 32-channel stage a vocoder call), serving, the
-analysis tools and the trained model must launch it.
+analysis tools and the trained model must launch it. The activation
+kernel runs on BigVGAN's path alone (phase 2c); the HiFiGAN paths above
+do not launch it.
 The last three lines are the card's name and power limit, a
 ``{"kernels": [...]}`` JSON line, and ``{"ok": true, "device": {...}}``.
 Any failed phase exits non-zero; so does a host without a CUDA device.
@@ -348,6 +358,18 @@ MRF_LIMIT = 1e-5  # kernel vs plain max-abs, of the plain output's peak
 # A V1 vocoder call launches the MRF kernel once a layer of its 32-channel
 # stage: 3 resblocks of 3 layers.
 V1_MRF_LAUNCHES = 9
+# Phase 2c: the activation kernel at BigVGAN-v2's six stages, 32 rows x 768
+# frames (the bulk benchmark's batch and frame bucket): name -> (channels,
+# samples a frame); the published generator's vocoder config; a call's
+# launches (6 stages x 3 resblocks x 6 activations, and activation_post).
+AMP_ROWS, AMP_FRAMES = 32, 768
+AMP_STAGES = {"768ch": (768, 4), "384ch": (384, 16), "192ch": (192, 32),
+              "96ch": (96, 64), "48ch": (48, 128), "24ch": (24, 256)}
+AMP_LIMIT = 1e-5  # kernel vs plain max-abs, of the plain output's peak
+BIGVGAN_V2 = dict(upsample_rates=(4, 4, 2, 2, 2, 2),
+                  upsample_kernel_sizes=(8, 8, 4, 4, 4, 4),
+                  upsample_initial_channel=1536, activation="snakebeta")
+BIGVGAN_AMP_LAUNCHES = 109
 # The loss each stage's fixed-batch check follows.
 STAGE_LOSS = {"duration": "duration_loss", "vae": "total",
               "postnet": "postnet_l1", "gan": "gen_mel_l1"}
@@ -572,6 +594,97 @@ def phase2b_mrf(dev, card: str) -> dict:
         del x, blocks
         torch.cuda.empty_cache()
     return {"worst": worst, "stages": stages}
+
+
+def phase2c_amp(dev, card: str) -> dict:
+    """The anti-aliased activation kernel against its plain version (the
+    composition it replaces: replicate pads, cuDNN's depthwise transposed
+    and strided convs, SnakeBeta's elementwise passes) at BigVGAN-v2's
+    stage shapes (:data:`AMP_STAGES`), with drawn log-α and log-β; max-abs
+    within :data:`AMP_LIMIT` of the peak, and the times of both beside the
+    kernel's byte bound. Then a full-width BigVGAN-v2 pipeline synthesizes
+    a sentence and a batch, the kernel's launches zeroed just before and
+    read just after (:data:`BIGVGAN_AMP_LAUNCHES` a vocoder call). Returns
+    the worst error, each stage's (ms, plain ms, bound ms, bound by,
+    error) and the synthesis path's launches."""
+    import numpy as np
+
+    from iris_tts_tpu_torch import HiFiGANConfig, IrisConfig
+    from iris_tts_tpu_torch.models.pipeline import TTSPipeline
+    from iris_tts_tpu_torch.ops import amp_cuda
+    from iris_tts_tpu_torch.runtime import pin_math_precision
+
+    pin_math_precision()  # the plain version's depthwise convs in f32
+    t_build = time.perf_counter()
+    lib_path = amp_cuda.build_library()
+    amp_cuda._library()
+    print(f"phase 2c build: amp_activation.cu -> {lib_path.name} in "
+          f"{time.perf_counter() - t_build:.1f} s", flush=True)
+    g = torch.Generator().manual_seed(21)
+    h = amp_cuda.FILTER.to(dev)
+    worst, stages = 0.0, {}
+    for name, (c, per_frame) in AMP_STAGES.items():
+        t = AMP_FRAMES * per_frame
+        x = torch.randn((AMP_ROWS, c, t), generator=g).to(dev)
+        alpha = (torch.randn(c, generator=g) * 0.5).to(dev)
+        beta = (torch.randn(c, generator=g) * 0.5).to(dev)
+        with torch.inference_mode():
+            got = amp_cuda.amp_cuda(x, alpha, beta)
+            want = amp_cuda.amp_plain(x, alpha, beta, h)
+            err = max_abs(got, want)
+            peak = float(want.abs().max())
+            del got, want
+            check(err <= AMP_LIMIT * peak, f"activation kernel vs plain "
+                  f"max-abs {err} <= {AMP_LIMIT} x peak {peak} ({name})")
+            k_ms = time_cuda_ms(lambda: amp_cuda.amp_cuda(x, alpha, beta),
+                                reps=5, warmup=2, graph=False)
+            p_ms = time_cuda_ms(
+                lambda: amp_cuda.amp_plain(x, alpha, beta, h), reps=5,
+                warmup=2, graph=False)
+        flops, nbytes = amp_cuda.amp_cost(tuple(x.shape))
+        b_ms, b_by = bound(flops, nbytes)
+        worst = max(worst, err)
+        stages[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                        "bound_by": b_by, "max_abs_err": err, "peak": peak}
+        print(f"phase 2c activation {name} [{AMP_ROWS}, {c}, {t}]: max-abs "
+              f"{err:.3e} ({err / peak:.2e} of the peak); kernel {k_ms:.3f} "
+              f"ms, plain (pads + depthwise convs + SnakeBeta) {p_ms:.3f} "
+              f"ms, bound {b_ms:.3f} ms ({b_by}; {flops / 1e9:.3f} GFLOP, "
+              f"{nbytes / 1e9:.3f} GB), kernel/bound {k_ms / b_ms:.2f}x, "
+              f"plain/kernel {p_ms / k_ms:.2f}x (device times: CUDA events "
+              f"around 5 eager calls; {card})", flush=True)
+        del x
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    pipe = TTSPipeline.initialize(
+        IrisConfig(hifigan=HiFiGANConfig(**BIGVGAN_V2)), seed=0)
+    n_voc = sum(p.numel() for p in pipe.model.hifigan.parameters())
+    print(f"phase 2c init: BigVGAN-v2 pipeline ({n_voc / 1e6:.2f} M vocoder "
+          f"params) in {time.perf_counter() - t0:.1f} s", flush=True)
+    hop = pipe.config.hifigan.total_upsample
+    amp_cuda.amp_cuda.launches = 0
+    audio = pipe.synthesize(SENTENCE, seed=1)
+    outs = pipe.synthesize(BATCH, seed=2)
+    torch.cuda.synchronize()
+    launches = amp_cuda.amp_cuda.launches
+    for a in [audio] + list(outs):
+        check(len(a) > 0 and len(a) % hop == 0,
+              "BigVGAN audio length a multiple of the hop")
+        check(bool(np.isfinite(a).all()) and float(np.abs(a).max()) <= 1.0,
+              "BigVGAN audio finite and clamped")
+    check(launches >= BIGVGAN_AMP_LAUNCHES
+          and launches % BIGVGAN_AMP_LAUNCHES == 0,
+          f"BigVGAN synthesis launched the activation kernel "
+          f"{BIGVGAN_AMP_LAUNCHES} times a vocoder call ({launches})")
+    print(f"phase 2c BigVGAN synthesis: {len(audio)} samples, a batch of "
+          f"{len(outs)} ({[len(a) for a in outs]} samples); activation "
+          f"kernel launches {launches} ({launches // BIGVGAN_AMP_LAUNCHES} "
+          f"vocoder calls x {BIGVGAN_AMP_LAUNCHES})", flush=True)
+    del pipe
+    torch.cuda.empty_cache()
+    return {"worst": worst, "stages": stages,
+            "launches_by_path": {"synthesis_bigvgan": launches}}
 
 
 @contextlib.contextmanager
@@ -4540,6 +4653,9 @@ def main() -> int:
     mrf = phase2b_mrf(dev, card)
     mrf_by_path = {}
 
+    # -- 2c. the activation kernel vs plain, and BigVGAN's synthesis path ------
+    amp = phase2c_amp(dev, card)
+
     # -- main path: phases 3 and 4 ------------------------------------------
     mel_cuda.log_mel_cuda.launches = 0
     mrf_cuda.mrf_cuda.launches = 0
@@ -4729,6 +4845,21 @@ def main() -> int:
            for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": mrf["stages"]["v2_32ch"]["plain_ms"],
         "stages": mrf["stages"],
+    }, {
+        "name": "amp_act",
+        "route": "cuda",
+        "source": "iris_tts_tpu_torch/ops/csrc/amp_activation.cu",
+        # The JAX package has no BigVGAN.
+        "replaces": None,
+        "launches": sum(amp["launches_by_path"].values()),
+        "launches_by_path": amp["launches_by_path"],
+        "max_abs_err": amp["worst"],
+        # At the 384-channel stage; each stage under "stages". The plain
+        # version is the library composition the kernel replaces.
+        **{key: amp["stages"]["384ch"][key]
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": amp["stages"]["384ch"]["plain_ms"],
+        "stages": amp["stages"],
     }]
     print(card)
     print(json.dumps({"kernels": kernels}))

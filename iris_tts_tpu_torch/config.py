@@ -122,8 +122,15 @@ class PostNetConfig:
 
 @dataclass(frozen=True)
 class HiFiGANConfig:
-    """HiFiGAN generator topology (reference: src/iris/hifigan_pretrained.py:
-    74-121 — torch padding semantics, and src/iris/vocoder.py:52-142)."""
+    """Vocoder topology: HiFiGAN's generator (reference:
+    src/iris/hifigan_pretrained.py:74-121 — torch padding semantics, and
+    src/iris/vocoder.py:52-142), or with ``activation="snakebeta"``
+    BigVGAN-v2's (NVIDIA/BigVGAN, ``models/bigvgan.py``): the same ladder of
+    upsamplers and resblocks, the keys named as in BigVGAN's config files.
+
+    ``activation`` is written to JSON only where it is not the default
+    (:data:`_OMIT_AT_DEFAULT`), so a HiFiGAN config serialises as it always
+    has and the JAX package, which has no such key, still reads it."""
 
     in_channels: int = 80
     upsample_rates: Tuple[int, ...] = (8, 8, 2, 2)
@@ -135,6 +142,10 @@ class HiFiGANConfig:
         (1, 3, 5),
         (1, 3, 5),
     )
+    # "leaky_relu" (HiFiGAN: conv_post with a bias, tanh) or "snakebeta"
+    # (BigVGAN-v2's anti-aliased SnakeBeta AMP blocks, with the source's
+    # snake_logscale true, use_tanh_at_final and use_bias_at_final false).
+    activation: str = "leaky_relu"
 
     @property
     def total_upsample(self) -> int:
@@ -202,11 +213,19 @@ class IrisConfig:
 # ---------------------------------------------------------------------------
 
 
+# Fields left out of the JSON while they hold their defaults.
+_OMIT_AT_DEFAULT = {
+    "HiFiGANConfig": ("activation",),
+}
+
+
 def _to_jsonable(obj: Any) -> Any:
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        omit = _OMIT_AT_DEFAULT.get(type(obj).__name__, ())
         return {
             f.name: _to_jsonable(getattr(obj, f.name))
             for f in dataclasses.fields(obj)
+            if not (f.name in omit and getattr(obj, f.name) == f.default)
         }
     if isinstance(obj, (list, tuple)):
         return [_to_jsonable(x) for x in obj]

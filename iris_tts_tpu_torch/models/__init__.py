@@ -1,6 +1,7 @@
-"""Model zoo: encoder, duration head, VAE, PostNet, HiFiGAN, and the
-synthesis pipeline over them."""
+"""Model zoo: encoder, duration head, VAE, PostNet, HiFiGAN, BigVGAN, and
+the synthesis pipeline over them."""
 
+from iris_tts_tpu_torch.models.bigvgan import BigVGANGenerator
 from iris_tts_tpu_torch.models.encoder import (
     DurationPredictor,
     PhonemeEncoder,
@@ -34,6 +35,7 @@ from iris_tts_tpu_torch.models.vae import (
 )
 
 __all__ = [
+    "BigVGANGenerator",
     "DurationPredictor",
     "PhonemeEncoder",
     "TransformerBlock",

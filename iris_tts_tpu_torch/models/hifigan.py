@@ -43,6 +43,7 @@ from iris_tts_tpu_torch.models.layers import (
     init_params,
     set_dtype,
 )
+from iris_tts_tpu_torch.ops.amp_cuda import HALO
 from iris_tts_tpu_torch.ops.mrf_cuda import (
     LRELU_SLOPE,
     block_refusal,
@@ -68,11 +69,11 @@ class TorchConv1d(Conv1d):
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int, dilation: int = 1, stride: int = 1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, bias: bool = True):
         p = (kernel_size * dilation - dilation) // 2
         super().__init__(in_channels, out_channels, kernel_size,
                          stride=stride, dilation=dilation, padding=(p, p),
-                         init="normal", dtype=dtype)
+                         init="normal", dtype=dtype, bias=bias)
 
 
 class TorchConvTranspose1d(ConvTranspose1d):
@@ -126,6 +127,10 @@ class HiFiGANGenerator(nn.Module):
     def __init__(self, config: HiFiGANConfig = HiFiGANConfig(),
                  dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
+        if config.activation != "leaky_relu":
+            raise ValueError(f"HiFiGAN's generator takes leaky ReLU, not "
+                             f"{config.activation!r}; a 'snakebeta' config "
+                             f"is BigVGAN's (models/bigvgan.py)")
         cfg = self.config = config
         self.remat = remat
         self.num_kernels = len(cfg.resblock_kernel_sizes)
@@ -182,13 +187,18 @@ def receptive_radius_frames(config: HiFiGANConfig = HiFiGANConfig()) -> int:
     units: a dilated conv adds ``(k-1)//2 * d`` current-rate steps; a
     transposed conv adds at most ``ceil(k/u)`` input-rate steps; MRF
     branches run in parallel, so their radius is the max over resblocks of
-    the summed sequential pairs. Default topology → 15 frames.
+    the summed sequential pairs. BigVGAN's anti-aliased activations
+    (``activation="snakebeta"``: two a resblock layer and one before
+    ``conv_post``) add ``ops.amp_cuda.HALO`` current-rate steps each: Up's
+    6-tap phases and Down's 12 taps at twice the rate reach 5 input samples
+    a side. Default topology → 15 frames.
     """
+    act = HALO if config.activation == "snakebeta" else 0
     total_up = config.total_upsample
     spu = total_up  # output samples per step at the current rate
     r = 3 * spu  # conv_pre k=7
     mrf = max(
-        sum((k - 1) // 2 * d + (k - 1) // 2 for d in dils)
+        sum((k - 1) // 2 * d + (k - 1) // 2 + 2 * act for d in dils)
         for k, dils in zip(config.resblock_kernel_sizes,
                            config.resblock_dilations)
     )
@@ -196,7 +206,7 @@ def receptive_radius_frames(config: HiFiGANConfig = HiFiGANConfig()) -> int:
         r += -(-k // u) * spu  # transposed conv, in input-rate steps
         spu //= u
         r += mrf * spu
-    r += 3  # conv_post k=7 (spu == 1)
+    r += act + 3  # activation_post, conv_post k=7 (spu == 1)
     return -(-r // total_up)
 
 

@@ -257,12 +257,13 @@ class ColumnParallel:
 class Conv1d(ColumnParallel, nn.Module):
     """1-D conv on ``[B, C_in, T]``, 'SAME' (default) or explicit
     (left, right) padding. ``init``: "lecun" (flax default), "zeros", or
-    "normal" (HiFiGAN's normal(0.01) kernels)."""
+    "normal" (HiFiGAN's normal(0.01) kernels); ``bias=False``: none."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, dilation: int = 1, groups: int = 1,
                  padding: Union[str, Tuple[int, int]] = "SAME",
-                 init: str = "lecun", dtype: torch.dtype = torch.float32):
+                 init: str = "lecun", dtype: torch.dtype = torch.float32,
+                 bias: bool = True):
         super().__init__()
         if isinstance(padding, str) and padding.upper() != "SAME":
             raise ValueError(f"unsupported padding {padding!r}")
@@ -273,7 +274,7 @@ class Conv1d(ColumnParallel, nn.Module):
         self.padding, self.init = padding, init
         self.weight = nn.Parameter(
             torch.empty(out_channels, in_channels // groups, kernel_size))
-        self.bias = nn.Parameter(torch.zeros(out_channels))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
 
     def reset_parameters(self, generator) -> None:
         if self.init == "lecun":
@@ -282,7 +283,8 @@ class Conv1d(ColumnParallel, nn.Module):
             nn.init.normal_(self.weight, 0.0, 0.01, generator=generator)
         else:
             nn.init.zeros_(self.weight)
-        nn.init.zeros_(self.bias)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def _shard_inputs(self, split: ColumnSplit) -> None:
         """A grouped conv's slice of output channels reads only its groups'
@@ -314,7 +316,8 @@ class Conv1d(ColumnParallel, nn.Module):
             pad = tuple(self.padding)
         if self.tp is None:
             dt = self.dtype
-            return conv1d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
+            bias = None if self.bias is None else self.bias.to(dt)
+            return conv1d(x.to(dt), self.weight.to(dt), bias,
                           stride=self.stride, dilation=self.dilation,
                           padding=pad, groups=self.groups)
         sl = self._in_slice
@@ -469,3 +472,5 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
                             generator=generator)
         elif isinstance(m, (nn.LayerNorm, nn.BatchNorm1d)):
             m.reset_parameters()
+        elif callable(getattr(m, "draw_params", None)):
+            m.draw_params(generator)

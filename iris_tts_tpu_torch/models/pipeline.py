@@ -71,9 +71,9 @@ import torch.nn as nn
 from iris_tts_tpu_torch.config import IrisConfig, load_config, save_config
 from iris_tts_tpu_torch.convert.from_jax import state_dict_from_jax
 from iris_tts_tpu_torch.data.audio_io import join_wave_chunks, write_wav
+from iris_tts_tpu_torch.models.bigvgan import generator_class
 from iris_tts_tpu_torch.models.encoder import DurationPredictor, PhonemeEncoder
 from iris_tts_tpu_torch.models.hifigan import (
-    HiFiGANGenerator,
     iter_stream_windows,
     receptive_radius_frames,
 )
@@ -171,7 +171,10 @@ class _Dispatch(NamedTuple):
 
 class SynthesisModel(nn.Module):
     """The five networks of the pipeline; its state-dict keys are the flax
-    parameter paths joined with dots (``convert/from_jax.py``)."""
+    parameter paths joined with dots (``convert/from_jax.py``). The vocoder
+    (``hifigan``) is the generator the config states: HiFiGAN, or BigVGAN
+    for ``activation="snakebeta"`` (``models/bigvgan.py``, NVIDIA's key
+    names)."""
 
     def __init__(self, config: IrisConfig):
         super().__init__()
@@ -180,7 +183,7 @@ class SynthesisModel(nn.Module):
                                           config.duration)
         self.vae = TextConditionedVAE(config.vae)
         self.postnet = PostNet(config.postnet)
-        self.hifigan = HiFiGANGenerator(config.hifigan)
+        self.hifigan = generator_class(config.hifigan)(config.hifigan)
 
 
 UPSAMPLE_MODES = ("hard", "gaussian")
@@ -378,14 +381,31 @@ class TTSPipeline:
         use_postnet: bool = True,
         seed: int = 1337,
         dtype: DtypeLike = None,
+        vocoder_state_dict: Optional[Dict[str, torch.Tensor]] = None,
     ) -> "TTSPipeline":
         """Pipeline from the JAX ``TTSPipeline.params`` tree with numpy
-        leaves (see ``convert/from_jax.py``), computing in ``dtype``."""
+        leaves (see ``convert/from_jax.py``), computing in ``dtype``.
+
+        ``vocoder_state_dict``: the vocoder's weights as a state dict of the
+        port's generator instead (a ``params`` without ``hifigan``): how a
+        BigVGAN, which the JAX package does not have, joins the acoustic
+        model (``convert/bigvgan.py`` reads NVIDIA's checkpoints)."""
         device = resolve_device(device)
         config, vocab, text_processor = cls._prepare(
             config, vocab, text_processor, lexicon_path)
         model = SynthesisModel(config)
-        model.load_state_dict(state_dict_from_jax(params, model), strict=True)
+        if vocoder_state_dict is None:
+            sd = state_dict_from_jax(params, model)
+        else:
+            if "hifigan" in params:
+                raise ValueError("pass the vocoder in params or in "
+                                 "vocoder_state_dict, not both")
+            acoustic = nn.ModuleDict({k: v for k, v in model.named_children()
+                                      if k != "hifigan"})
+            sd = state_dict_from_jax(params, acoustic)
+            sd.update({f"hifigan.{k}": v
+                       for k, v in vocoder_state_dict.items()})
+        model.load_state_dict(sd, strict=True)
         return cls._assemble(config, model, vocab, text_processor, device,
                              use_postnet, seed, dtype=dtype)
 

@@ -57,6 +57,9 @@ def tp_param_sharding(params: Any, mesh: Mesh,
     if not isinstance(params, nn.Module):
         raise TypeError("the model axis shards the layers of a module; "
                         f"got {type(params).__name__}")
+    for m in params.modules():
+        if getattr(m, "tp_refusal", None):
+            raise ValueError(m.tp_refusal)
     for _, layer in _column_layers(params):
         width = layer.jax_width()
         if layer.tp is None and width >= min_dim and width % axis.size == 0:

@@ -49,7 +49,7 @@ from iris_tts_tpu_torch.models.pipeline import (
     fused_mel,
     fused_synthesis,
 )
-from iris_tts_tpu_torch.ops import mrf_cuda
+from iris_tts_tpu_torch.ops import amp_cuda, mrf_cuda
 from iris_tts_tpu_torch.runtime import resolve_device
 from iris_tts_tpu_torch.scripts.common import add_device_arg
 
@@ -65,7 +65,8 @@ aten = torch.ops.aten
 _NO_DATA = {aten._unsafe_view, aten.lift_fresh, aten.empty, aten.empty_like,
             aten.empty_strided, aten.new_empty, aten.new_empty_strided}
 # The port's own operators, counted as what they replace.
-_OP_BYTES = {torch.ops.iris_tts.mrf_stage: mrf_cuda.mrf_stage_bytes}
+_OP_BYTES = {torch.ops.iris_tts.mrf_stage: mrf_cuda.mrf_stage_bytes,
+             torch.ops.iris_tts.amp_act: amp_cuda.amp_act_bytes}
 
 
 class ByteCounter(TorchDispatchMode):

@@ -30,13 +30,17 @@ per call::
       iris.bucket      the host reads stage A's totals, groups by bucket
       iris.stage_b     a batch's device work (_stage_b), holding
         iris.acoustic  noise, length regulation, VAE, PostNet (_acoustic)
-        iris.vocoder   HiFiGAN (_vocode_device)
+        iris.vocoder   HiFiGAN or BigVGAN (_vocode_device)
+          iris.amp_act each of BigVGAN's anti-aliased activations
       iris.collect     the copy to the host and the trim (_fetch_rows)
 
 and counts ``stage_b.frames_useful`` (each distinct utterance's own frames)
 and ``stage_b.frames_padded`` (each batch's rows × its frame bucket), whose
-ratio is the share of stage B's frames that are speech. The pipeline's
-other entry points open the same method spans. No span sits in a
+ratio is the share of stage B's frames that are speech. The vocoder counts
+its layers by the path that ran them: HiFiGAN's resblock layers as
+``vocoder.fused_layers`` / ``vocoder.library_layers``, BigVGAN's
+activations as ``vocoder.amp_fused`` / ``vocoder.amp_library``. The
+pipeline's other entry points open the same method spans. No span sits in a
 module-level function (``stage_a``, ``acoustic``, ``fused_synthesis``,
 ...): those are what ``torch.export`` traces and ``serve/export.py``
 captures as CUDA graphs.

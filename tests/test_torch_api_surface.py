@@ -52,6 +52,8 @@ OTHER_SIGNATURE = {
 }
 # qualified name → parameters the port adds after JAX's (beyond ``device``).
 EXTRA_PARAMS = {
+    # BigVGAN-v2's key (models/bigvgan.py), which the JAX package lacks.
+    "HiFiGANConfig": {"activation"},
     "models.TTSPipeline.from_checkpoints": {"seed"},
     "models.TextConditionedVAE.generate": {"generator"},
     "parallel.initialize_multihost": {"backend", "timeout_s"},
