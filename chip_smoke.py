@@ -17,9 +17,10 @@ against its plain PyTorch version:
    kernel's bound;
 2b. build the MRF resblock kernel (``ops/csrc/mrf_resblock.cu``) and hold
    it against its plain version (the cuDNN + elementwise composition it
-   replaces) at the main path's shapes, 32 rows x 742 frames: V2's 32-,
-   16- and 8-channel stages and V1's 32-channel stage, unit-gain weights
-   (max-abs <= 1e-5 of the peak), with the times of both and the
+   replaces) at the main path's shapes, 32 rows x 742 frames: V2's 16- and
+   8-channel stages on the narrow plan, V1's four stages (256 to 32
+   channels) and V2's 64- and 32-channel ones on the wide plan, unit-gain
+   weights (max-abs <= 1e-5 of the peak), with the times of both and the
    kernel's FFMA bound;
 2c. build the anti-aliased activation kernel (``ops/csrc/
    amp_activation.cu``) and hold it against its plain version (the
@@ -45,8 +46,10 @@ against its plain PyTorch version:
    loss must drop (step time, peak memory, first and last loss printed); a
    bit-exact checkpoint round trip; ``TTSPipeline.from_checkpoints`` and one
    synthesized sentence; one step of each stage's loss at a small width on
-   the card and on the CPU, losses and gradients held together (≤ 1e-4 of
-   the largest |g|);
+   the card and on the CPU (HiFiGAN at V2's widths, 64 to 8 channels, the
+   narrowest the MRF kernel takes in the discriminator step's no-grad
+   generation), losses and gradients held together (≤ 1e-4 of the largest
+   |g|);
 7. serving at full width (``IrisConfig()``, seeded random weights with
    ``conv_post`` scaled so the peak lies near 0.5, since unscaled random
    weights quantize to PCM16 zeros): ``warmup_fused`` and
@@ -272,8 +275,9 @@ launches. Each path's
 launch counts are zeroed just before it and read just after, and a
 kernel of the path that was not launched fails the run. The MRF kernel's
 launches are counted the same way, path by path; synthesis (a multiple
-of 9, one a layer of V1's 32-channel stage a vocoder call), serving, the
-analysis tools and the trained model must launch it. The activation
+of 72 a V1 vocoder call: two a layer, a conv each, of its four stages),
+serving, the analysis tools
+and the trained model must launch it. The activation
 kernel runs on BigVGAN's path alone (phase 2c); the HiFiGAN paths above
 do not launch it.
 The last three lines are the card's name and power limit, a
@@ -350,14 +354,16 @@ AOT_PADDED_BATCH_LIMIT = 1e-5
 CLI_CORPUS = 32
 # Phase 2b: the MRF kernel's stages at the main path's shapes, 32 rows x
 # 742 frames (the bulk benchmark's batch and frame bucket): name ->
-# (channels, samples a frame). V2's narrow stages and V1's 32-channel one.
+# (channels, samples a frame). Every stage of V1 and V2.
 MRF_ROWS, MRF_FRAMES = 32, 742
 MRF_STAGES = {"v2_32ch": (32, 64), "v2_16ch": (16, 128), "v2_8ch": (8, 256),
-              "v1_32ch": (32, 256)}
+              "v1_32ch": (32, 256), "v1_256ch": (256, 8),
+              "v1_128ch": (128, 64), "v1_64ch": (64, 128),
+              "v2_64ch": (64, 8)}
 MRF_LIMIT = 1e-5  # kernel vs plain max-abs, of the plain output's peak
-# A V1 vocoder call launches the MRF kernel once a layer of its 32-channel
-# stage: 3 resblocks of 3 layers.
-V1_MRF_LAUNCHES = 9
+# A V1 vocoder call's MRF kernel launches: 3 resblocks of 3 layers a stage,
+# two (a conv each) a layer at 32-256 channels.
+V1_MRF_LAUNCHES = 4 * 9 * 2
 # Phase 2c: the activation kernel at BigVGAN-v2's six stages, 32 rows x 768
 # frames (the bulk benchmark's batch and frame bucket): name -> (channels,
 # samples a frame); the published generator's vocoder config; a call's
@@ -575,10 +581,11 @@ def phase2b_mrf(dev, card: str) -> dict:
             del got, want
             check(err <= MRF_LIMIT * peak, f"MRF kernel vs plain max-abs "
                   f"{err} <= {MRF_LIMIT} x peak {peak} ({name})")
-            k_ms = time_cuda_ms(lambda: mrf_cuda.mrf_cuda(x, blocks), reps=5,
-                                warmup=2, graph=False)
+            # 3 calls after 1: the wide stages take 5-180 ms a call
+            k_ms = time_cuda_ms(lambda: mrf_cuda.mrf_cuda(x, blocks), reps=3,
+                                warmup=1, graph=False)
             p_ms = time_cuda_ms(lambda: mrf_cuda.mrf_plain(x, blocks),
-                                reps=5, warmup=2, graph=False)
+                                reps=3, warmup=1, graph=False)
         flops, nbytes = mrf_work(MRF_ROWS, c, t, blocks)
         b_ms, b_by = bound(flops, nbytes)
         worst = max(worst, err)
@@ -590,7 +597,7 @@ def phase2b_mrf(dev, card: str) -> dict:
               f"{b_ms:.3f} ms ({b_by}; {flops / 1e12:.4f} TFLOP, "
               f"{nbytes / 1e9:.3f} GB), kernel/bound {k_ms / b_ms:.2f}x, "
               f"plain/kernel {p_ms / k_ms:.2f}x (device times: CUDA events "
-              f"around 5 eager calls; {card})", flush=True)
+              f"around 3 eager calls; {card})", flush=True)
         del x, blocks
         torch.cuda.empty_cache()
     return {"worst": worst, "stages": stages}
@@ -963,7 +970,7 @@ def phase6_training(dev, card: str):
                             num_wavenet_blocks=2, decoder_blocks=1,
                             flow_layers=2, flow_hidden=8),
             postnet=C.PostNetConfig(num_layers=3, channels=8),
-            hifigan=C.HiFiGANConfig(upsample_initial_channel=32,
+            hifigan=C.HiFiGANConfig(upsample_initial_channel=128,
                                     resblock_kernel_sizes=(3, 7),
                                     resblock_dilations=((1, 3), (1, 3))))
         on_card = _small_stage_grads(dev, small)

@@ -7,16 +7,18 @@ so T mel frames become exactly T · prod(upsample_rates) samples.
 
 The convolutions are about 99% of synthesis FLOPs. In the JAX package they
 are XLA's own conv lowering (no Pallas kernel). Here ``conv_pre``, the
-upsamplers, ``conv_post`` and the MRF resblocks of stages wider than 32
-channels (V1's 256, 128 and 64; V2's 64) are cuDNN's ``F.conv1d`` /
+upsamplers and ``conv_post`` are cuDNN's ``F.conv1d`` /
 ``F.conv_transpose1d``, f32 with TF32 off (callers pin it,
-``runtime.pin_math_precision``). The MRF stages of 8, 16 and 32 channels
-(V1's last; V2's last three) run a hand-written f32 CUDA kernel, one launch
-a resblock layer with the MRF average and the next leaky ReLU in its
-epilogue (``ops/mrf_cuda.py``), on a CUDA float32 input with gradients off
-outside export tracing; anywhere else (the GAN step, bf16, export, the
-CPU) they run the same composition as the wide stages. Every stage returns
-the leaky ReLU of its average, the only form the next layer reads.
+``runtime.pin_math_precision``). The MRF stages of 8 to 256 channels
+(every stage of V1 and V2) run hand-written f32 CUDA kernels, with the
+leaky ReLUs, residual adds, the MRF average and the next leaky ReLU in
+their prologues and epilogues (``ops/mrf_cuda.py``: one launch a resblock
+layer at 8 and 16 channels, an implicit GEMM a conv at 32-256), on a CUDA
+float32 input with gradients off outside export tracing, where a stage the
+kernel has no plan for (another width, kernel size or dilation) raises;
+anywhere else (gradients on, bf16, export, sharded convs, the CPU) they
+run the library's composition. Every stage returns the leaky ReLU of its
+average, the only form the next layer reads.
 
 ``dtype`` is the compute dtype (``models/layers.py``); the waveform comes
 out in it. ``remat=True`` recomputes each MRF ``ResBlock``'s activations
@@ -151,8 +153,10 @@ class HiFiGANGenerator(nn.Module):
     def mrf(self, i: int, x: torch.Tensor) -> torch.Tensor:
         """Stage ``i``'s multi-receptive-field fusion of the upsampled ``x``:
         the leaky ReLU of the average of its resblocks' outputs. The kernel
-        where ``ops.mrf_cuda.fused_mrf_applies`` holds, else the library's
-        convs (each block recomputed in the backward pass under remat).
+        where ``ops.mrf_cuda.fused_mrf_applies`` holds (it raises for f32
+        inference on the card on blocks the kernel has no plan for), else
+        the library's convs (each block recomputed in the backward pass
+        under remat).
         While a profiler records, counts the stage's resblock layers as
         ``vocoder.fused_layers`` or ``vocoder.library_layers``."""
         blocks = [getattr(self, f"resblocks_{i * self.num_kernels + j}")

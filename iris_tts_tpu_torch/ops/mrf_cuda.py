@@ -1,28 +1,33 @@
-"""HiFiGAN's multi-receptive-field (MRF) resblocks at narrow widths: the
-hand-written CUDA kernel and its wrapper.
+"""HiFiGAN's multi-receptive-field (MRF) resblocks: the hand-written CUDA
+kernels and their wrapper.
 
-The kernel (``csrc/mrf_resblock.cu``) replaces no TPU kernel: the JAX
-package leaves HiFiGAN to XLA's convolutions. It computes one ResBlock
-layer, ``x + conv2(lrelu(conv1(lrelu(x))))``, in one pass, and on a block's
-last layer one step of the MRF average; the last block's epilogue writes
-the leaky ReLU of the average, which is all the next upsampler or
-``conv_post`` reads. Its header comment gives the design and what bounds it
-(FFMA at these widths). It is f32 throughout and ignores PyTorch's TF32
+The kernels (``csrc/mrf_resblock.cu``) replace no TPU kernel: the JAX
+package leaves HiFiGAN to XLA's convolutions. They compute a ResBlock
+layer, ``x + conv2(lrelu(conv1(lrelu(x))))``, and on a block's last layer
+one step of the MRF average; the last block's epilogue writes the leaky
+ReLU of the average, which is all the next upsampler or ``conv_post``
+reads. There is a tile plan per range of widths, picked by the stage's
+channel count: at 8 and 16 channels (:data:`NARROW_CHANNELS`) one launch a
+layer; at 32-256 (:data:`WIDE_CHANNELS`) an f32 implicit GEMM a conv, two
+launches a layer, the leaky ReLUs, bias, residual and MRF step in their
+prologues and epilogues. The source's header comment gives the designs and
+what bounds them (FFMA). They are f32 throughout and ignore PyTorch's TF32
 switches.
 
 :func:`mrf_cuda` runs a stage's whole MRF through the operator
-``iris_tts::mrf_stage`` (every layer of every block, one launch each, after
-one launch that packs the stage's weights);
+``iris_tts::mrf_stage`` (every layer of every block, after one launch that
+packs the stage's weights);
 :func:`mrf_plain` is the same function in plain PyTorch: the blocks'
 forward passes, their sum in order, the division and the leaky ReLU.
 :func:`fused_mrf_applies` is the generator's dispatch rule, read off the
 input and the blocks: a CUDA float32 tensor, gradients off, not under
-``torch.export`` / ``torch.compile`` tracing, and blocks the kernel takes:
-a width in :data:`KERNEL_CHANNELS` and kernel sizes in
-:data:`KERNEL_SIZES` (read once, when a ``ResBlock`` is built:
-:func:`block_refusal`), with unsharded convs that compute in float32.
-Everything else (the GAN step, bf16, export, the CPU, wide stages) runs
-:func:`mrf_plain`.
+``torch.export`` / ``torch.compile`` tracing, and unsharded convs that
+compute in float32. Such a call on blocks the kernel has no plan for (a
+width outside :data:`KERNEL_CHANNELS`, a kernel size outside
+:data:`KERNEL_SIZES`, a dilation it was not built for: read once, when a
+``ResBlock`` is built, :func:`block_refusal`) raises rather than leave the
+kernel. Everything else (the GAN step, bf16, export, sharded convs, the
+CPU) runs :func:`mrf_plain`.
 
 Counting: the operator has a FLOP formula for ``FlopCounterMode`` and a
 byte count for ``scripts/roofline.ByteCounter``, both those of the
@@ -31,7 +36,9 @@ vocoder's work reads the same on the card as on the CPU.
 
 Build: at first use, ``nvcc`` compiles the source into a shared library
 with a plain C interface under ``build/iris_tts_tpu_torch/``, keyed by a
-hash of the source and flags (``utils/cxx.py``), and ``ctypes`` loads it.
+hash of the source and flags (``utils/cxx.py``): one translation unit for
+the narrow plan, the pack and the error strings, and one a wide width,
+side by side; ``ctypes`` loads it.
 The launches go on PyTorch's current stream; each error code is checked
 and a failure raises. :func:`mrf_cuda` has no fallback: on a tensor or
 blocks it does not take, it raises.
@@ -52,21 +59,27 @@ from iris_tts_tpu_torch.utils.cxx import build_cuda_library
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mrf_resblock.cu"
 LRELU_SLOPE = 0.1  # HiFiGAN's; the kernel's kSlope
-# The widths the kernel has a tile plan for, and so the widest stage that
-# runs it: cuDNN's f32 tiles leave most of their width idle at 8-32
-# channels. At 64 one conv's weights (180 KB at K = 11) would not leave
-# room for a tile.
-KERNEL_CHANNELS = (8, 16, 32)
+# The widths the kernel has a tile plan for. At 8 and 16 channels a block
+# stages one conv's whole weights and runs a layer in one launch; from 32 on
+# a block stages a slice of input channels at a time, a launch a conv (the
+# source's header gives the times that drew the line).
+NARROW_CHANNELS = (8, 16)
+WIDE_CHANNELS = (32, 64, 128, 256)
+KERNEL_CHANNELS = NARROW_CHANNELS + WIDE_CHANNELS
 KERNEL_SIZES = (3, 7, 11)
+WIDE_DILATIONS = (1, 3, 5)  # the wide plan's, built per (C, K, dilation)
 MAX_SPAN = 50  # (K - 1) * dilation: conv1's reach over both sides
 MAX_CONVS = 64  # convs one pack launch takes
-ADD_SUM, FINISH = 1, 2  # the epilogue's mode bits
+# The epilogue's mode bits; FIRST marks a wide layer's conv1 launch.
+ADD_SUM, FINISH, FIRST = 1, 2, 4
 
 
 def build_library() -> Path:
     """Compile ``csrc/mrf_resblock.cu`` (once per source hash) and return
-    the path of the shared library."""
-    return build_cuda_library(SOURCE, "mrf_resblock")
+    the path of the shared library: one translation unit for the narrow
+    plan and one a wide width (``IRIS_MRF_WIDE``), compiled side by side."""
+    return build_cuda_library(SOURCE, "mrf_resblock", [()] + [
+        (f"-DIRIS_MRF_WIDE={c}",) for c in WIDE_CHANNELS])
 
 
 @functools.lru_cache(maxsize=None)
@@ -78,6 +91,11 @@ def _library() -> ctypes.CDLL:
     lib.iris_mrf_layer.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.iris_mrf_layer.restype = ctypes.c_int
+    for c in WIDE_CHANNELS:
+        wide = getattr(lib, f"iris_mrf_wide_{c}")
+        wide.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        wide.restype = ctypes.c_int
     lib.iris_mrf_error_string.argtypes = [ctypes.c_int]
     lib.iris_mrf_error_string.restype = ctypes.c_char_p
     return lib
@@ -101,17 +119,26 @@ def block_refusal(channels: int, kernel_size: int,
         return f"kernel size {kernel_size}"
     if any((kernel_size - 1) * d > MAX_SPAN for d in dilations):
         return f"dilations {tuple(dilations)} at kernel size {kernel_size}"
+    if channels in WIDE_CHANNELS and not set(dilations) <= set(
+            WIDE_DILATIONS):
+        return f"dilations {tuple(dilations)} at {channels} channels"
     return None
 
 
-def _refusal(blocks: Sequence) -> Optional[str]:
-    """Why the kernel cannot run ``blocks`` as they stand, or None: each
-    block's shape, then each conv unsharded and in float32 (its compute
-    dtype and its weights)."""
-    n = 0
+def _shape_refusal(blocks: Sequence) -> Optional[str]:
+    """Why the kernel has no plan for ``blocks``' shapes, or None."""
     for block in blocks:
         if block.kernel_refusal is not None:
             return block.kernel_refusal
+    n = sum(2 * block.n for block in blocks)
+    return f"{n} convs in a stage" if n > MAX_CONVS else None
+
+
+def _conv_refusal(blocks: Sequence) -> Optional[str]:
+    """Why the kernel cannot take ``blocks``' convs as they stand, or None:
+    each conv unsharded and in float32 (its compute dtype and its
+    weights)."""
+    for block in blocks:
         for pair in block.layers():
             for conv in pair:
                 if conv.tp is not None:
@@ -119,8 +146,12 @@ def _refusal(blocks: Sequence) -> Optional[str]:
                 if (conv.dtype != torch.float32
                         or conv.weight.dtype != torch.float32):
                     return f"a conv computing in {conv.dtype}"
-        n += 2 * block.n
-    return f"{n} convs in a stage" if n > MAX_CONVS else None
+    return None
+
+
+def _refusal(blocks: Sequence) -> Optional[str]:
+    """Why the kernel cannot run ``blocks`` as they stand, or None."""
+    return _shape_refusal(blocks) or _conv_refusal(blocks)
 
 
 def _on_card(x: torch.Tensor) -> bool:
@@ -129,11 +160,18 @@ def _on_card(x: torch.Tensor) -> bool:
 
 def fused_mrf_applies(x: torch.Tensor, blocks: Sequence) -> bool:
     """The generator's dispatch rule for a stage's MRF on ``x`` [B, C, T]:
-    True where :func:`mrf_stage` runs it."""
-    return (_on_card(x) and x.dtype == torch.float32
+    True where :func:`mrf_stage` runs it. HiFiGAN's float32 inference on
+    the card runs on the kernel: for such a call on blocks of a shape the
+    kernel has no plan for, it raises ``ValueError``."""
+    if not (_on_card(x) and x.dtype == torch.float32
             and not torch.is_grad_enabled()
-            and not torch.compiler.is_compiling()
-            and _refusal(blocks) is None)
+            and not torch.compiler.is_compiling()):
+        return False
+    why = _shape_refusal(blocks)
+    if why is not None:
+        raise ValueError(f"HiFiGAN runs its f32 inference on the card on "
+                         f"the MRF kernel: {why}")
+    return _conv_refusal(blocks) is None
 
 
 def mrf_plain(x: torch.Tensor, blocks: Sequence) -> torch.Tensor:
@@ -151,8 +189,9 @@ def mrf_stage(x: torch.Tensor, blocks: Sequence) -> torch.Tensor:
     """:func:`mrf_plain` of ResBlocks ``blocks`` on a CUDA float32 ``x``
     [B, C, T], contiguous, by the kernel, through the operator
     ``iris_tts::mrf_stage``: one launch packs the stage's weights, then one
-    launch a layer (counted in ``mrf_cuda.launches``), the last layer of
-    each block stepping the average in place in the output. For blocks
+    launch a layer at 8 and 16 channels, two at 32-256 (each counted in
+    ``mrf_cuda.launches``), the last layer of each block stepping the
+    average in place in the output. For blocks
     :func:`fused_mrf_applies` has passed (the generator's call); the
     operator raises for another dtype or layout of ``x``."""
     pairs = [pair for block in blocks for pair in block.layers()]
@@ -215,8 +254,16 @@ def _mrf_stage(x: torch.Tensor, weights: List[torch.Tensor],
     for k in ks:
         offs.append(offs[-1] + channels * k * channels + channels)
     packed = torch.empty(offs[-1], device=x.device, dtype=torch.float32)
-    tmp = [torch.empty_like(x) for _ in range(min(2, max(layers) - 1))]
     lib = _library()
+    wide = (getattr(lib, f"iris_mrf_wide_{channels}")
+            if channels in WIDE_CHANNELS else None)
+    if wide is not None:
+        # conv1's output, and the layers between a block's first and last:
+        # each overwrites its own residual, element by element
+        hidden = torch.empty_like(x)
+        between = torch.empty_like(x) if max(layers) > 1 else None
+    else:
+        tmp = [torch.empty_like(x) for _ in range(min(2, max(layers) - 1))]
     n = len(weights)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -230,18 +277,31 @@ def _mrf_stage(x: torch.Tensor, weights: List[torch.Tensor],
             h = x
             for step in range(n_layers):
                 last = step == n_layers - 1
-                dst = out if last else tmp[step % 2]
                 mode = ((ADD_SUM if last and j > 0 else 0)
                         | (FINISH if last and j == len(layers) - 1 else 0))
                 w1, w2 = (base + 4 * offs[i], base + 4 * offs[i + 1])
-                k = ks[i]
-                _raise_on(lib, lib.iris_mrf_layer(
-                    h.data_ptr(), w1, w1 + 4 * channels * k * channels,
-                    w2, w2 + 4 * channels * k * channels,
-                    out.data_ptr() if mode & ADD_SUM else None,
-                    dst.data_ptr(), batch, channels, t, k,
-                    dilations[i // 2], mode, len(layers), stream), "launch")
-                mrf_cuda.launches += 1
+                k, d = ks[i], dilations[i // 2]
+                bias = 4 * channels * k * channels  # a bias after its weights
+                if wide is not None:
+                    dst = out if last else between
+                    _raise_on(lib, wide(
+                        h.data_ptr(), w1, w1 + bias, None, None,
+                        hidden.data_ptr(), batch, t, k, d, FIRST,
+                        len(layers), stream), "launch")
+                    _raise_on(lib, wide(
+                        hidden.data_ptr(), w2, w2 + bias, h.data_ptr(),
+                        out.data_ptr() if mode & ADD_SUM else None,
+                        dst.data_ptr(), batch, t, k, 1, mode,
+                        len(layers), stream), "launch")
+                    mrf_cuda.launches += 2
+                else:
+                    dst = out if last else tmp[step % 2]
+                    _raise_on(lib, lib.iris_mrf_layer(
+                        h.data_ptr(), w1, w1 + bias, w2, w2 + bias,
+                        out.data_ptr() if mode & ADD_SUM else None,
+                        dst.data_ptr(), batch, channels, t, k, d, mode,
+                        len(layers), stream), "launch")
+                    mrf_cuda.launches += 1
                 h, i = dst, i + 2
     return out
 

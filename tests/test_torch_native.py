@@ -169,6 +169,27 @@ def test_a_failed_build_falls_back(tmp_path, monkeypatch):
     assert not any((tmp_path / "build").glob("*.so"))
 
 
+def test_a_source_built_in_parts_links_into_one_library(tmp_path,
+                                                       monkeypatch, lib):
+    """A source compiled once a part (each part its own defines), side by
+    side, links into one library holding every part's symbols and leaves
+    no object behind; the parts are part of the library's key."""
+    import ctypes
+
+    monkeypatch.setattr(cxx, "BUILD_DIR", tmp_path / "build")
+    src = tmp_path / "parts.cpp"
+    src.write_text('#ifdef PART\nextern "C" int part(void) { return PART; }\n'
+                   '#else\nextern "C" int whole(void) { return 7; }\n'
+                   '#endif\n')
+    path = cxx._build(src, "parts", cxx._cxx, cxx.CXX_FLAGS,
+                      [(), ("-DPART=3",)])
+    so = ctypes.CDLL(str(path))
+    assert (so.whole(), so.part()) == (7, 3)
+    assert cxx.build_shared_library(src, "parts") != path
+    assert sorted(p.suffix for p in (tmp_path / "build").iterdir()) == [
+        ".so", ".so", ".txt", ".txt"]
+
+
 def test_native_reads_equal_jaxs(tmp_path, rng, lib):
     if not jax_native.native_available():
         pytest.skip("the JAX package's native library does not build here")
